@@ -1,0 +1,75 @@
+"""Stencil kernels and the shared step loops.
+
+Port of ``tpu_comm/kernels/__init__.py``. PyTorch runs eagerly, so the
+JAX package's jitted ``fori_loop``/``while_loop`` become Python loops
+that launch one kernel per step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def run_steps(step, u0: torch.Tensor, iters: int, bc: str,
+              **kwargs) -> torch.Tensor:
+    """Iterate ``step`` ``iters`` times from ``u0``; returns the field.
+
+    Ping-pong over two buffers allocated once per call: each step writes
+    into the buffer the step before last wrote (in-place reuse), so the
+    loop allocates nothing after its start. ``u0`` itself is only read.
+    """
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    if iters == 0:
+        return u0.clone()
+    bufs = (torch.empty_like(u0), torch.empty_like(u0))
+    src = u0
+    for i in range(iters):
+        src = step(src, bc=bc, out=bufs[i % 2], **kwargs)
+    return src
+
+
+def run_steps_to_convergence(
+    step, u0: torch.Tensor, tol: float, max_iters: int,
+    check_every: int = 10, bc: str = "dirichlet", **kwargs,
+) -> tuple[torch.Tensor, int, float]:
+    """Iterate until the per-step L2 residual reaches ``tol``.
+
+    Every ``check_every`` steps, the last step's change (taken in the
+    field dtype, cast to float32, squared and summed in float32) is read
+    back to the host; the loop stops when it is ``<= tol`` or after
+    ``max_iters`` total steps, as ``reference.jacobi_run_to_convergence``
+    does. Same ping-pong buffers as :func:`run_steps`. Returns
+    ``(u, iters_run, residual)``.
+    """
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    bufs = (torch.empty_like(u0), torch.empty_like(u0))
+    src = u0
+    n = 0
+    it = 0
+    res = float("inf")
+    while it < max_iters and res > tol:
+        for _ in range(check_every - 1):
+            src = step(src, bc=bc, out=bufs[n % 2], **kwargs)
+            n += 1
+        new = step(src, bc=bc, out=bufs[n % 2], **kwargs)
+        n += 1
+        d = (new - src).float()
+        res = float(torch.sqrt(torch.sum(d * d, dtype=torch.float32)))
+        src = new
+        it += check_every
+    return (src if n else u0.clone()), it, res
+
+
+def stencil_module(dim: int):
+    """Per-dimension kernel module (step_plain / step_stream / run)."""
+    if dim == 1:
+        from tpu_comm_torch.kernels import jacobi1d as mod
+    elif dim == 2:
+        from tpu_comm_torch.kernels import jacobi2d as mod
+    elif dim == 3:
+        from tpu_comm_torch.kernels import jacobi3d as mod
+    else:
+        raise ValueError(f"dim must be 1, 2 or 3, got {dim}")
+    return mod
