@@ -8,31 +8,40 @@ Phases, each printing JSON lines; any failure exits non-zero:
 1. environment: torch/CUDA versions, device count, ``nvidia-smi`` name and
    power limit;
 2. build: the CUDA kernels from ``tpu_comm_torch/csrc`` into
-   ``build/torch_ext/`` (timed);
-3. every kernel x {float32, bfloat16, float16} x {dirichlet, periodic}:
-   20 steps at full size through the kernel and through its plain
-   PyTorch version on the card, required bitwise equal (``torch.equal``),
-   plus ragged shapes and a non-default chunk;
-4. the main path: ``python -m tpu_comm_torch stencil --impl auto --verify``
-   (in process, through ``cli.main``) for dims 1, 2 and 3 at full size,
-   each with every kernel's launch count set to 0 just before and read
-   just after; each row must say ``platform: cuda`` and ``verified: true``
-   and the dim's kernel must have launched;
+   ``build/torch_ext/`` (one ``nvcc`` per source, all at once; timed);
+3. every kernel against its plain PyTorch version on the card, required
+   bitwise equal (``torch.equal``):
+   - stencils: kernel x {float32, bfloat16, float16} x {dirichlet,
+     periodic}, 20 steps at full size, plus ragged shapes and a
+     non-default chunk;
+   - membw: every op a kernel serves x every dtype x aliased on/off x the
+     default and a non-default chunk, at 2^26 elements and at a ragged
+     size; the dma copy at depths 2, 3 and 4, also with fewer chunks per
+     CTA than slots; and the stream kernel's machine code must still hold
+     its neighbour loads (``cuobjdump``);
+4. the main path, in process through ``cli.main``, each run with every
+   kernel's launch count set to 0 just before and read just after:
+   ``stencil --impl auto --verify`` for dims 1, 2 and 3 at full size, and
+   ``membw --op OP --impl ARM`` for every (op, arm) pair the JAX CLI
+   accepts; each row must say ``platform: cuda`` and ``verified: true``,
+   the run's kernel must have launched and no other;
 5. times at the full float32 sizes (CUDA events): kernel, plain version,
-   one library call computing the same stencil (``nn.Conv{1,2,3}d`` with
-   circular padding, TF32 off; a yardstick the port never calls), and a
-   device-to-device copy of the field;
+   one library call computing the same function (a yardstick the port
+   never calls), and for each stencil a device-to-device ``copy_`` and the
+   port's own chunked copy kernel at the same bytes;
 6. the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
-Full sizes: 1D 2^26 points, 2D 8192^2, 3D 512^3; in float32 that is
-256/256/512 MiB per buffer, far above the 50 MB L2, so the kernels stream
-DRAM. Fields are made on the card from fixed seeds.
+Full sizes: stencils 1D 2^26 points, 2D 8192^2, 3D 512^3; membw 2^26
+elements. In float32 that is 256/256/512 MiB per buffer, far above the
+50 MB L2, so the kernels stream DRAM. Inputs are made on the card from
+fixed seeds.
 """
 
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 import tempfile
 import time
@@ -61,6 +70,33 @@ RAGGED = {
 }
 #: a non-default chunk per dim (rows / rows / planes), results must not move
 ODD_CHUNK = {1: 1, 2: 5, 3: 3}
+MEMBW_N = 1 << 26
+#: 25 rows of 128: the last chunk of 8 rows is ragged
+MEMBW_RAGGED = 128 * 8 * 3 + 128
+MEMBW_ODD_CHUNK = 3
+MEMBW_SOURCE = "tpu_comm_torch/csrc/membw.cu"
+#: the scalar of the checks: not representable in any field dtype, so the
+#: kernels' narrow-then-widen of s is exercised
+MEMBW_S = 0.7
+#: kernel -> the TPU body it replaces, the ops it serves, and the op whose
+#: time the kernels line carries
+MEMBW_KERNELS = {
+    "membw_unary": ("tpu_comm/bench/membw.py:89", ("copy", "scale"), "copy"),
+    "membw_binary": ("tpu_comm/bench/membw.py:98", ("add", "triad"),
+                     "triad"),
+    "membw_stream": ("tpu_comm/bench/membw.py:150", ("copy",), "copy"),
+    "membw_dma": ("tpu_comm/bench/membw.py:198", ("copy",), "copy"),
+}
+#: every (op, --impl) pair the JAX CLI accepts, in the port's arm names
+MEMBW_RUNS = [(op, arm) for op in ("copy", "scale", "add", "triad")
+              for arm in ("torch", "chunked", "both")] + [
+    ("copy", "stream"), ("copy", "dma")]
+#: the wrapper whose count an arm's run must raise (the torch arm runs no
+#: kernel of the port)
+MEMBW_WRAPPER = {"chunked": "membw.step_chunked", "both": "membw.step_chunked",
+                 "stream": "membw.step_stream", "dma": "membw.step_dma"}
+#: operations per element of each op (its bound's second term)
+MEMBW_OPS_PER_ELEM = {"copy": 0, "scale": 1, "add": 1, "triad": 2}
 T0 = time.perf_counter()
 
 
@@ -131,23 +167,24 @@ def check_kernels(torch, mods) -> dict:
     return errs
 
 
-def drive_main_path(torch, mods) -> dict:
+def drive_main_path(torch, mods, counters) -> dict:
     """Phase 4: the driver at full size per dim; returns the dim's
     kernel launches in its run."""
     from tpu_comm_torch import cli
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for dim, mod in mods.items():
+        for dim in mods:
             path = Path(tmp) / f"stencil{dim}d.jsonl"
-            for m in mods.values():
-                m.step_stream.launches = 0
+            for w in counters.values():
+                w.launches = 0
             rc = cli.main([
                 "stencil", "--dim", str(dim), "--size", str(SIZES[dim]),
                 "--impl", "auto", "--verify",
                 "--verify-iters", str(VERIFY_ITERS), "--jsonl", str(path),
             ])
-            counts = {d: m.step_stream.launches for d, m in mods.items()}
+            counts = {k: w.launches for k, w in counters.items()}
+            name = KERNELS[dim][0]
             if rc != 0:
                 fail(f"stencil --dim {dim} exited {rc}")
             row = json.loads(path.read_text().splitlines()[-1])
@@ -157,12 +194,12 @@ def drive_main_path(torch, mods) -> dict:
                      f"verified={verified}")
             if row.get("impl") != "stream":
                 fail(f"stencil --dim {dim}: auto gave {row.get('impl')}")
-            if counts[dim] == 0:
-                fail(f"{KERNELS[dim][0]} was not launched on the main path")
-            if any(c for d, c in counts.items() if d != dim):
+            if counts[name] == 0:
+                fail(f"{name} was not launched on the main path")
+            if any(c for k, c in counts.items() if k != name):
                 fail(f"stencil --dim {dim} launched other kernels: {counts}")
-            launches[dim] = counts[dim]
-            emit({"main_path": {"dim": dim, "launches": counts[dim],
+            launches[dim] = counts[name]
+            emit({"main_path": {"dim": dim, "launches": counts[name],
                                 "gbps_eff": row["gbps_eff"],
                                 "secs_per_iter": row["secs_per_iter"],
                                 "elapsed_s": time.perf_counter() - T0}})
@@ -188,6 +225,8 @@ def library_call(torch, dim: int):
 
 def measure_times(torch, mods) -> dict:
     """Phase 5: per-step times at the full float32 sizes."""
+    from tpu_comm_torch.kernels import membw
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
@@ -204,6 +243,10 @@ def measure_times(torch, mods) -> dict:
         plain_ms = time_ms(
             torch, lambda: mod.step_plain(u, "dirichlet", out=dst), 10)
         copy_ms = time_ms(torch, lambda: dst.copy_(u), 50)
+        flat_u, flat_dst = u.reshape(-1), dst.reshape(-1)
+        chunked_copy_ms = time_ms(
+            torch, lambda: membw.step_chunked(flat_u, None, 1.0, "copy",
+                                              out=flat_dst), 50)
         conv = library_call(torch, dim)
         x = u.reshape((1, 1) + shape)
         with torch.no_grad():
@@ -225,16 +268,221 @@ def measure_times(torch, mods) -> dict:
             "library_call": f"torch.nn.Conv{dim}d(padding_mode='circular')",
             "library_max_abs_err": lib_err,
             "copy_ms": copy_ms,
+            # the repo's own roofline rule: the port's own measured copy
+            # (membw_unary) at the same bytes, the denominator the JAX
+            # package reads its stencil numbers against
+            "chunked_copy_ms": chunked_copy_ms,
+            "kernel_over_chunked_copy": kernel_ms / chunked_copy_ms,
             "bytes": nbytes, "ops": ops,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            # the repo's own roofline rule: the same bytes at the measured
-            # copy's rate, which is the copy's own time
-            "copy_bound_ms": copy_ms,
         }
         emit({"times": {**out[dim], "elapsed_s": time.perf_counter() - T0}})
-        del u, dst, x, conv
+        del u, dst, x, conv, flat_u, flat_dst
         torch.cuda.empty_cache()
+    return out
+
+
+def membw_kernel_of(op: str, arm: str) -> str:
+    """The membw kernel an (op, arm) pass launches."""
+    if arm == "stream":
+        return "membw_stream"
+    if arm == "dma":
+        return "membw_dma"
+    return "membw_unary" if op in ("copy", "scale") else "membw_binary"
+
+
+def _hold(torch, name: str, got, want, errs: dict, what: str) -> None:
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    errs[name] = max(errs[name], err)
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        fail(f"{name} {what}: kernel != plain (max abs err {err})")
+
+
+def check_membw(torch) -> dict:
+    """Phase 3, membw: each kernel against its plain version, bitwise;
+    returns the max abs error per kernel (0.0 when every case was
+    equal)."""
+    from tpu_comm_torch.kernels import membw
+
+    errs = {name: 0.0 for name in MEMBW_KERNELS}
+    cases = {name: 0 for name in MEMBW_KERNELS}
+    for n in (MEMBW_N, MEMBW_RAGGED):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            x = random_field(torch, (n,), dtype, seed=20)
+            b = random_field(torch, (n,), dtype, seed=21)
+            for op in ("copy", "scale", "add", "triad"):
+                name = membw_kernel_of(op, "chunked")
+                want = membw.step_plain(x, b, MEMBW_S, op)
+                for aliased in (False, True):
+                    for rows in (None, MEMBW_ODD_CHUNK):
+                        src = x.clone() if aliased else x
+                        got = membw.step_chunked(src, b, MEMBW_S, op, rows,
+                                                 aliased)
+                        if aliased and got.data_ptr() != src.data_ptr():
+                            fail(f"{name} aliased did not write in place")
+                        _hold(torch, name, got, want, errs,
+                              f"{op} n={n} {dtype} aliased={aliased} "
+                              f"chunk={rows}")
+                        cases[name] += 1
+                        del src, got
+                del want
+            want = membw.copy_plain(x)
+            for aliased in (False, True):
+                for rows in (None, MEMBW_ODD_CHUNK):
+                    src = x.clone() if aliased else x
+                    got = membw.step_stream(src, rows, aliased=aliased)
+                    _hold(torch, "membw_stream", got, want, errs,
+                          f"n={n} {dtype} aliased={aliased} chunk={rows}")
+                    cases["membw_stream"] += 1
+                    del src, got
+            for depth in (2, 3, 4):
+                for rows in (None, MEMBW_ODD_CHUNK):
+                    got = membw.step_dma(x, rows, depth)
+                    _hold(torch, "membw_dma", got, want, errs,
+                          f"n={n} {dtype} depth={depth} chunk={rows}")
+                    cases["membw_dma"] += 1
+                    del got
+            del x, b, want
+            torch.cuda.empty_cache()
+    # fewer chunks than slots: on the whole card (3 chunks, depth 4) and
+    # per CTA (a depth-4 ring of 32 KiB slots fits once on an SM, so
+    # 3 chunks per SM give each CTA 3 < 4 chunks)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, rows, depth in ((128 * 3, 1, 4), (sms * 3 * 64 * 128, 64, 4)):
+        x = random_field(torch, (n,), torch.float32, seed=22)
+        _hold(torch, "membw_dma", membw.step_dma(x, rows, depth), x, errs,
+              f"n={n} depth={depth} chunk={rows} (fewer chunks than slots)")
+        cases["membw_dma"] += 1
+    for name in MEMBW_KERNELS:
+        emit({"check": {"kernel": name, "cases": cases[name],
+                        "sizes": [MEMBW_N, MEMBW_RAGGED], "s": MEMBW_S,
+                        "max_abs_err": errs[name],
+                        "tolerance": "bitwise (torch.equal)",
+                        "elapsed_s": time.perf_counter() - T0}})
+    return errs
+
+
+def check_stream_loads(libs) -> None:
+    """The stream copy must keep the 1D stencil's two neighbour loads:
+    count the global loads in each instantiation's machine code."""
+    from tpu_comm_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(tool), "-sass", libs["membw"]._name], capture_output=True,
+        text=True, timeout=120, check=True,
+    ).stdout
+    loads = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split(None, 1)[0]
+        if "membw_stream" in fn:
+            loads[fn] = sum("LDG" in line for line in part.splitlines())
+    emit({"stream_loads": {"global_loads_per_kernel": loads,
+                           "elapsed_s": time.perf_counter() - T0}})
+    if len(loads) != 3 or min(loads.values()) < 3:
+        fail(f"membw_stream lost its neighbour loads: {loads}")
+
+
+def drive_membw(torch, counters) -> dict:
+    """Phase 4, membw: ``membw --op OP --impl ARM`` per pair; returns each
+    membw kernel's launches summed over the runs."""
+    from tpu_comm_torch import cli
+
+    launches = {name: 0 for name in MEMBW_KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for op, arm in MEMBW_RUNS:
+            path = Path(tmp) / f"membw-{op}-{arm}.jsonl"
+            for w in counters.values():
+                w.launches = 0
+            rc = cli.main(["membw", "--op", op, "--impl", arm,
+                           "--jsonl", str(path)])
+            counts = {k: w.launches for k, w in counters.items()}
+            if rc != 0:
+                fail(f"membw --op {op} --impl {arm} exited {rc}")
+            rows = [json.loads(line)
+                    for line in path.read_text().splitlines()]
+            impls = ["chunked", "torch"] if arm == "both" else [arm]
+            if [r.get("impl") for r in rows] != impls:
+                fail(f"membw --impl {arm} wrote rows {rows}")
+            for r in rows:
+                if r.get("platform") != "cuda" or r.get("verified") is not True:
+                    fail(f"membw {op}/{r.get('impl')}: row says "
+                         f"platform={r.get('platform')} "
+                         f"verified={r.get('verified')}")
+            wrapper = MEMBW_WRAPPER.get(arm)
+            if wrapper is not None and counts[wrapper] == 0:
+                fail(f"{wrapper} did not launch its kernel in membw --op "
+                     f"{op} --impl {arm}")
+            if any(c for k, c in counts.items() if k != wrapper):
+                fail(f"membw --op {op} --impl {arm} launched other "
+                     f"kernels: {counts}")
+            if wrapper is not None:
+                launches[membw_kernel_of(op, arm)] += counts[wrapper]
+            emit({"main_path": {
+                "membw": {"op": op, "impl": arm}, "launches": counts,
+                "gbps_eff": {r["impl"]: r["gbps_eff"] for r in rows},
+                "secs_per_iter": {r["impl"]: r["secs_per_iter"]
+                                  for r in rows},
+                "elapsed_s": time.perf_counter() - T0}})
+    return launches
+
+
+def measure_membw(torch) -> dict:
+    """Phase 5, membw: per-pass times at 2^26 float32 elements, per
+    (kernel, op)."""
+    from tpu_comm_torch.bench import TRAFFIC
+    from tpu_comm_torch.kernels import membw
+
+    n = MEMBW_N
+    x = random_field(torch, (n,), torch.float32, seed=30)
+    b = random_field(torch, (n,), torch.float32, seed=31)
+    dst = torch.empty_like(x)
+    s = MEMBW_S
+    kernel_call = {
+        "membw_unary": lambda op: membw.step_chunked(x, b, s, op, out=dst),
+        "membw_binary": lambda op: membw.step_chunked(x, b, s, op, out=dst),
+        "membw_stream": lambda op: membw.step_stream(x, out=dst),
+        "membw_dma": lambda op: membw.step_dma(x, out=dst),
+    }
+    library = {
+        "copy": ("dst.copy_(x)", lambda: dst.copy_(x)),
+        "scale": ("torch.mul(x, s, out=dst)",
+                  lambda: torch.mul(x, s, out=dst)),
+        "add": ("torch.add(x, b, out=dst)", lambda: torch.add(x, b, out=dst)),
+        "triad": ("torch.add(b, x, alpha=s, out=dst)",
+                  lambda: torch.add(b, x, alpha=s, out=dst)),
+    }
+    out = {}
+    for name, (_, ops, _) in MEMBW_KERNELS.items():
+        for op in ops:
+            kernel_ms = time_ms(torch, lambda: kernel_call[name](op), 50)
+            got = kernel_call[name](op).clone()
+            plain_ms = time_ms(
+                torch, lambda: membw.step_plain(x, b, s, op, out=dst), 20)
+            call, lib = library[op]
+            library_ms = time_ms(torch, lib, 50)
+            lib_err = float((lib() - got).abs().max())
+            nbytes = TRAFFIC[op] * n * x.element_size()
+            ops_n = MEMBW_OPS_PER_ELEM[op] * n
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            ops_ms = ops_n / PEAK_F32_OPS_PER_S * 1e3
+            out[(name, op)] = {
+                "kernel": name, "op": op, "shape": [n], "dtype": "float32",
+                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "library_call": call,
+                "library_max_abs_err": lib_err,
+                "bytes": nbytes, "ops": ops_n,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "gbps": nbytes / kernel_ms / 1e6,
+            }
+            emit({"times": {**out[(name, op)],
+                            "elapsed_s": time.perf_counter() - T0}})
+            del got
+    del x, b, dst
+    torch.cuda.empty_cache()
     return out
 
 
@@ -247,7 +495,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from tpu_comm_torch.bench.timing import nvidia_smi_line
-    from tpu_comm_torch.kernels import _build, stencil_module
+    from tpu_comm_torch.kernels import _build, membw, stencil_module
 
     smi = nvidia_smi_line()
     if smi is None:
@@ -266,12 +514,18 @@ def main() -> int:
                     "build_dir": str(_build.BUILD_DIR.relative_to(ROOT))}})
 
     mods = {dim: stencil_module(dim) for dim in (1, 2, 3)}
+    counters = {KERNELS[dim][0]: mods[dim].step_stream for dim in mods}
+    counters.update({f"membw.{w.__name__}": w for w in membw.WRAPPERS})
     errs = check_kernels(torch, mods)
-    launches = drive_main_path(torch, mods)
+    membw_errs = check_membw(torch)
+    check_stream_loads(libs)
+    launches = drive_main_path(torch, mods, counters)
+    membw_launches = drive_membw(torch, counters)
     times = measure_times(torch, mods)
+    membw_times = measure_membw(torch)
 
     print(smi, flush=True)
-    emit({"kernels": [
+    stencil_rows = [
         {
             "name": KERNELS[dim][0], "route": "cuda", "source": SOURCE,
             "replaces": KERNELS[dim][1], "launches": launches[dim],
@@ -281,10 +535,23 @@ def main() -> int:
             "bound_by": times[dim]["bound_by"],
             "library_ms": times[dim]["library_ms"],
             "copy_ms": times[dim]["copy_ms"],
+            "chunked_copy_ms": times[dim]["chunked_copy_ms"],
             "shape": times[dim]["shape"], "dtype": "float32",
         }
         for dim in (1, 2, 3)
-    ]})
+    ]
+    membw_rows = []
+    for name, (replaces, _, op) in MEMBW_KERNELS.items():
+        t = membw_times[(name, op)]
+        membw_rows.append({
+            "name": name, "route": "cuda", "source": MEMBW_SOURCE,
+            "replaces": replaces, "launches": membw_launches[name],
+            "max_abs_err": membw_errs[name], "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "op": op, "shape": t["shape"], "dtype": "float32",
+        })
+    emit({"kernels": stencil_rows + membw_rows})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -11,7 +11,13 @@ imports no JAX (the card's machine has none); run it there with
 import pytest
 import torch
 
-from tpu_comm_torch.kernels import jacobi1d, jacobi2d, jacobi3d, run_steps
+from tpu_comm_torch.kernels import (
+    jacobi1d,
+    jacobi2d,
+    jacobi3d,
+    membw,
+    run_steps,
+)
 
 MODS = {1: jacobi1d, 2: jacobi2d, 3: jacobi3d}
 SHAPES = {
@@ -78,3 +84,78 @@ def test_wrapper_counts_launches_and_checks_its_arguments(card, dim):
         with pytest.raises(ValueError, match="contiguous"):
             mod.step_stream(u.transpose(0, 1))
     assert mod.step_stream.launches == before + 1
+
+
+MEMBW_N = (128 * 8 * 3 + 128, 1 << 20)
+MEMBW_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _membw_operands(n, dtype):
+    return _field((n,), dtype, seed=1), _field((n,), dtype, seed=2)
+
+
+@pytest.mark.parametrize("dtype", MEMBW_DTYPES)
+@pytest.mark.parametrize("op", ["copy", "scale", "add", "triad"])
+def test_membw_chunked_bitwise_equals_plain_version(card, op, dtype):
+    for n in MEMBW_N:
+        x, b = _membw_operands(n, dtype)
+        want = membw.step_plain(x, b, 0.7, op)
+        for aliased in (False, True):
+            src = x.clone()
+            got = membw.step_chunked(src, b, 0.7, op, aliased=aliased)
+            torch.cuda.synchronize()
+            assert (got.data_ptr() == src.data_ptr()) == aliased
+            assert torch.equal(got, want), (n, aliased)
+        # a view off the 16-byte grid takes the element-wise path
+        xo, bo = x[1:1 + 1024], b[1:1 + 1024]
+        assert torch.equal(membw.step_chunked(xo, bo, 0.7, op),
+                           membw.step_plain(xo, bo, 0.7, op))
+
+
+@pytest.mark.parametrize("dtype", MEMBW_DTYPES)
+def test_membw_copies_are_bitwise(card, dtype):
+    for n in MEMBW_N:
+        x, _ = _membw_operands(n, dtype)
+        assert torch.equal(membw.step_stream(x), x)
+        src = x.clone()
+        assert torch.equal(membw.step_stream(src, aliased=True), x)
+        for depth in (2, 3, 4):
+            for rows in (1, 3, 8, 64):
+                got = membw.step_dma(x, rows_per_chunk=rows, depth=depth)
+                torch.cuda.synchronize()
+                assert torch.equal(got, x), (n, depth, rows)
+    # fewer chunks than ring slots
+    x = _field((128 * 3,), dtype)
+    assert torch.equal(membw.step_dma(x, rows_per_chunk=1, depth=4), x)
+
+
+def test_membw_chunk_sets_the_grid_not_the_result(card):
+    x, b = _membw_operands(MEMBW_N[0], torch.float32)
+    ref = membw.step_chunked(x, b, 0.7, "triad")
+    for rows in (1, 2, 3, 7, 1000):
+        assert torch.equal(membw.step_chunked(x, b, 0.7, "triad",
+                                              rows_per_chunk=rows), ref)
+        assert torch.equal(membw.step_stream(x, rows_per_chunk=rows), x)
+
+
+def test_membw_wrappers_count_launches_and_check_arguments(card):
+    x, b = _membw_operands(MEMBW_N[0], torch.float32)
+    before = [w.launches for w in membw.WRAPPERS]
+    out = torch.empty_like(x)
+    assert membw.step_chunked(x, b, 1.0, "add", out=out) is out
+    assert membw.step_stream(x, out=out) is out
+    assert membw.step_dma(x, out=out) is out
+    assert [w.launches for w in membw.WRAPPERS] == [c + 1 for c in before]
+    with pytest.raises(ValueError, match="unless aliased"):
+        membw.step_chunked(x, b, 1.0, "scale", out=x)
+    with pytest.raises(ValueError, match="must not alias the input"):
+        membw.step_dma(x, out=x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        membw.step_dma(x[1:1 + 1024])
+    with pytest.raises(ValueError, match="shared memory"):
+        membw.step_dma(x, rows_per_chunk=1024, depth=2)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        membw.step_stream(x[:1000])
+    with pytest.raises(ValueError, match="take"):
+        membw.step_chunked(x.double(), b.double(), 1.0, "copy")
+    assert [w.launches for w in membw.WRAPPERS] == [c + 1 for c in before]

@@ -54,6 +54,8 @@ def test_the_walk_sees_the_whole_package():
         "tpu_comm_torch/cli.py",
         "tpu_comm_torch/kernels/jacobi3d.py",
         "tpu_comm_torch/bench/stencil.py",
+        "tpu_comm_torch/bench/membw.py",
+        "tpu_comm_torch/kernels/membw.py",
         "chip_smoke.py",
     } <= names
 

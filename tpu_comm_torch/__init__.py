@@ -12,7 +12,9 @@ Its entry points run on the CUDA card unless the caller asks for the CPU
 (``--backend cpu``).
 
 Ported so far: the single-device stencil driver (``bench/stencil.py``)
-and its three stream kernels (``kernels/jacobi{1,2,3}d.py``).
+and its three stream kernels (``kernels/jacobi{1,2,3}d.py``); the STREAM
+bandwidth driver (``bench/membw.py``) and its four kernels
+(``kernels/membw.py``).
 """
 
 __version__ = "0.1.0"

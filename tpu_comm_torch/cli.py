@@ -2,11 +2,15 @@
 
 - ``stencil`` — the single-device 1D/2D/3D Jacobi driver
   (``bench/stencil.py``), with the JAX CLI's flag names for what it has.
+- ``membw``   — the STREAM bandwidth quartet (``bench/membw.py``), with the
+  JAX CLI's flags; its arms carry the port's names (``bench/__init__.py``
+  maps them).
 - ``info``    — torch and CUDA versions and the device a backend gives.
 
-Flags of the JAX CLI that this slice does not port (``--mesh``,
-``--points``, ``--fuse-steps``, ``--halo-*``, ``--dimsem``, ...) are not
-accepted. Errors print ``error: ...`` and exit 2.
+Flags of the JAX CLI that the port does not have (``--mesh``,
+``--points``, ``--fuse-steps``, ``--halo-*``, ...) are not accepted;
+``membw --dimsem`` is refused with its reason. Errors print
+``error: ...`` and exit 2.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+from tpu_comm_torch.bench import MEMBW_OPS
 
 
 def _add_backend_arg(p: argparse.ArgumentParser) -> None:
@@ -58,6 +64,38 @@ def _cmd_stencil(args) -> int:
     return 0
 
 
+def _cmd_membw(args) -> int:
+    from tpu_comm_torch.bench.membw import (
+        MembwConfig,
+        config_for_arm,
+        run_membw,
+    )
+
+    if args.dimsem is not None:
+        print("error: --dimsem sets Mosaic's grid semantics on the TPU and "
+              "has no counterpart here: CUDA blocks are always unordered",
+              file=sys.stderr)
+        return 2
+    cfg = MembwConfig(
+        op=args.op, impl=args.impl, backend=args.backend, size=args.size,
+        dtype=args.dtype, chunk=args.chunk, aliased=args.aliased,
+        depth=args.depth, iters=args.iters, warmup=args.warmup,
+        reps=args.reps, verify=not args.no_verify, jsonl=args.jsonl,
+    )
+    # chunked first for "both": its checks (size, chunk) then fail before
+    # the torch arm has measured and written a row
+    impls = ["chunked", "torch"] if args.impl == "both" else [args.impl]
+    for impl in impls:
+        arm = config_for_arm(cfg, impl) if args.impl == "both" else cfg
+        try:
+            record = run_membw(arm)
+        except (ValueError, RuntimeError, AssertionError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(json.dumps(record, sort_keys=True))
+    return 0
+
+
 def _cmd_info(args) -> int:
     import torch
 
@@ -83,7 +121,8 @@ def _cmd_info(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m tpu_comm_torch",
-        description="PyTorch/CUDA port of tpu_comm's stencil driver",
+        description="PyTorch/CUDA port of tpu_comm: the stencil and STREAM "
+        "bandwidth drivers",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -153,6 +192,59 @@ def build_parser() -> argparse.ArgumentParser:
         help="write the post-run field to this .npy (bfloat16 as float32)",
     )
     p_st.set_defaults(func=_cmd_stencil)
+
+    p_mb = sub.add_parser(
+        "membw",
+        help="STREAM bandwidth quartet (copy/scale/add/triad): the copy "
+        "kernels and the measured roofline denominator",
+    )
+    _add_backend_arg(p_mb)
+    p_mb.add_argument("--op", choices=list(MEMBW_OPS), default="triad")
+    p_mb.add_argument(
+        "--impl", default="both",
+        help="arms: 'torch' (one PyTorch op per pass; JAX 'lax'), 'chunked' "
+        "(the CUDA kernels; JAX 'pallas'), 'stream' (the 1D stencil kernel "
+        "with the arithmetic removed, --op copy only; JAX 'pallas-stream'), "
+        "'dma' (the copy pipelined by hand through shared memory, --op copy "
+        "only; JAX 'pallas-dma'); 'both' = chunked + torch (default)",
+    )
+    p_mb.add_argument(
+        "--size", type=int, default=1 << 26,
+        help="elements (default 2^26 = 256 MiB per float32 array); a "
+        "multiple of 128 for the kernel arms",
+    )
+    p_mb.add_argument(
+        "--dtype", choices=["float32", "bfloat16", "float16"],
+        default="float32",
+    )
+    p_mb.add_argument(
+        "--chunk", type=int, default=None,
+        help="rows of 128 elements per CUDA block (chunked, stream) or per "
+        "ring slot (dma); default: the kernel's own. Sets the launch grid, "
+        "never the result",
+    )
+    p_mb.add_argument(
+        "--aliased", action="store_true",
+        help="write each pass into its input (the JAX input_output_aliases "
+        "knob); chunked and stream arms",
+    )
+    p_mb.add_argument(
+        "--depth", type=int, default=None, metavar="K",
+        help="shared-memory ring slots of --impl dma (default 2)",
+    )
+    p_mb.add_argument(
+        "--dimsem", default=None,
+        help="not available: Mosaic grid semantics have no counterpart on "
+        "the GPU (refused)",
+    )
+    p_mb.add_argument("--iters", type=int, default=50)
+    p_mb.add_argument("--warmup", type=int, default=2)
+    p_mb.add_argument("--reps", type=int, default=5)
+    p_mb.add_argument("--no-verify", action="store_true")
+    p_mb.add_argument(
+        "--jsonl", default=None, help="append the result rows to this file"
+    )
+    p_mb.set_defaults(func=_cmd_membw)
     return parser
 
 

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-SOURCES = ("jacobi_stream.cu",)
+SOURCES = ("jacobi_stream.cu", "membw.cu")
 NVCC_FLAGS = (
     "-O3",
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -38,12 +38,16 @@ NVCC_FLAGS = (
 )
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_N = ctypes.c_int64
 #: C signature of every exported launcher: argument types; each returns
-#: a cudaError_t as int
+#: a cudaError_t as int. Every source also exports ``tc_error_string``.
 SIGNATURES = {
-    "tc_jacobi1d_stream": (_P, _P, ctypes.c_int64, _I, _I, _I, _P),
+    "tc_jacobi1d_stream": (_P, _P, _N, _I, _I, _I, _P),
     "tc_jacobi2d_stream": (_P, _P, _I, _I, _I, _I, _I, _P),
     "tc_jacobi3d_stream": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tc_membw_chunked": (_P, _P, _P, _N, _I, _I, ctypes.c_float, _I, _P),
+    "tc_membw_stream": (_P, _P, _N, _I, _I, _P),
+    "tc_membw_dma": (_P, _P, _N, _I, _I, _I, _P),
 }
 
 

@@ -1,0 +1,264 @@
+"""STREAM kernels of the membw driver: plain PyTorch versions + hand-written
+CUDA kernels.
+
+Port of the kernel half of ``tpu_comm/bench/membw.py`` (``_lax_body``,
+the four Pallas bodies and the ``_chained`` loop). Arrays are flat with a
+multiple of 128 elements (the TPU kernels' ``(rows, 128)`` view); a chunk
+is ``rows_per_chunk`` rows of 128 elements and sets the launch grid, never
+the result.
+
+- ``step_torch``   — the ``torch`` arm (JAX ``lax``): one PyTorch op into a
+  preallocated output. Not a kernel of this repo; the CPU and the card run
+  it alike.
+- ``step_chunked`` — wrapper of ``membw_unary`` (copy, scale) and
+  ``membw_binary`` (add, triad) in ``csrc/membw.cu`` (JAX ``pallas``).
+- ``step_stream``  — wrapper of ``membw_stream``: the copy as the 1D
+  stencil kernel with its arithmetic removed (JAX ``pallas-stream``).
+- ``step_dma``     — wrapper of ``membw_dma``: the copy pipelined by hand
+  through ``depth`` shared-memory slots with TMA bulk copies and
+  mbarriers (JAX ``pallas-dma``).
+
+Each wrapper sends a CPU tensor to its plain version (``step_plain`` for
+the chunked ops, ``copy_plain`` for the copies) and a CUDA tensor to its
+kernel, or raises; ``<wrapper>.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_comm_torch.bench import MEMBW_IMPLS, MEMBW_OPS
+from tpu_comm_torch.kernels.jacobi1d import STREAM_DEFAULT_ROWS
+from tpu_comm_torch.kernels.tiling import (
+    DEFAULT_DMA_DEPTH,
+    KERNEL_DTYPE_CODES,
+    check_membw_args,
+    f32_compute,
+    launch_kernel,
+    narrow_store,
+)
+
+LANES = 128
+#: op codes of ``tc_membw_chunked`` (kCopy..kTriad in csrc/membw.cu)
+OP_CODES = {"copy": 0, "scale": 1, "add": 2, "triad": 3}
+BINARY_OPS = ("add", "triad")
+#: default rows of 128 elements per CUDA block of the chunked kernels
+CHUNKED_DEFAULT_ROWS = 32
+#: default bytes per slot of the dma ring (64 KiB of shared memory per CTA
+#: at depth 2, so three CTAs fit on an SM)
+DMA_DEFAULT_CHUNK_BYTES = 32 * 1024
+#: the dma ring's slot count bounds (kMaxDepth in csrc/membw.cu)
+DMA_MAX_DEPTH = 8
+
+
+def check_op(op: str) -> None:
+    if op not in MEMBW_OPS:
+        raise ValueError(f"op must be one of {MEMBW_OPS}, got {op!r}")
+
+
+def default_chunk(impl: str, dtype: torch.dtype) -> int:
+    """The rows per chunk a kernel arm uses when the caller passes none:
+    the stream arm takes the 1D stencil kernel's own grid."""
+    if impl == "stream":
+        return STREAM_DEFAULT_ROWS
+    if impl == "dma":
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        return DMA_DEFAULT_CHUNK_BYTES // (LANES * itemsize)
+    return CHUNKED_DEFAULT_ROWS
+
+
+def _chunk(rows_per_chunk: int | None, impl: str, dtype: torch.dtype) -> int:
+    if rows_per_chunk is None:
+        return default_chunk(impl, dtype)
+    if rows_per_chunk < 1:
+        raise ValueError(f"rows_per_chunk must be >= 1, got {rows_per_chunk}")
+    return rows_per_chunk
+
+
+def _require_cuda(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"CUDA kernel needs a CUDA tensor, got {x.device}")
+
+
+def step_plain(x: torch.Tensor, b: torch.Tensor | None, s: float, op: str,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """One STREAM op in plain PyTorch, the chunked kernels' arithmetic:
+    ``s`` narrowed to the field dtype and widened, f32 compute (triad as
+    ``b + (x * s)``, two roundings in f32), one RTNE narrowing."""
+    check_op(op)
+    if op == "copy":
+        return copy_plain(x, out)
+    sv = torch.tensor(s, dtype=x.dtype).item()
+    a = f32_compute(x)
+    if op == "scale":
+        r = a * sv
+    elif op == "add":
+        r = a + f32_compute(b)
+    else:
+        r = f32_compute(b) + a * sv
+    return narrow_store(r, x.dtype, out)
+
+
+def copy_plain(x: torch.Tensor,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """The copies' plain version: ``out.copy_(x)``."""
+    return x.clone() if out is None else out.copy_(x)
+
+
+def step_chunked(x: torch.Tensor, b: torch.Tensor | None, s: float, op: str,
+                 rows_per_chunk: int | None = None, aliased: bool = False,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """One STREAM ``op`` pass (``o = x``, ``x·s``, ``x + b``, ``b + x·s``).
+    ``b`` is read by add and triad only. With ``aliased`` the result is
+    written into ``x``. ``step_chunked.launches`` counts launches of both
+    kernels."""
+    check_op(op)
+    binary = op in BINARY_OPS
+    if binary and b is None:
+        raise ValueError(f"op {op!r} needs the second operand b")
+    out = check_membw_args(x, out, aliased, *((b,) if binary else ()))
+    rows = _chunk(rows_per_chunk, "chunked", x.dtype)
+    if x.device.type == "cpu":
+        return step_plain(x, b, s, op, out)
+    _require_cuda(x)
+    launch_kernel(
+        "tc_membw_chunked", x, x.data_ptr(),
+        b.data_ptr() if binary else None, out.data_ptr(), x.numel(),
+        KERNEL_DTYPE_CODES[x.dtype], OP_CODES[op], float(s), rows,
+    )
+    step_chunked.launches += 1
+    return out
+
+
+def step_stream(x: torch.Tensor, rows_per_chunk: int | None = None,
+                out: torch.Tensor | None = None,
+                aliased: bool = False) -> torch.Tensor:
+    """One copy through the 1D stencil kernel's loads and grid. With
+    ``aliased`` the copy runs in place (value-safe: a neighbour read
+    that races a write sees the same bits either way)."""
+    out = check_membw_args(x, out, aliased)
+    rows = _chunk(rows_per_chunk, "stream", x.dtype)
+    if x.device.type == "cpu":
+        return copy_plain(x, out)
+    _require_cuda(x)
+    launch_kernel("tc_membw_stream", x, x.data_ptr(), out.data_ptr(), x.numel(),
+            KERNEL_DTYPE_CODES[x.dtype], rows)
+    step_stream.launches += 1
+    return out
+
+
+def step_dma(x: torch.Tensor, rows_per_chunk: int | None = None,
+             depth: int = DEFAULT_DMA_DEPTH,
+             out: torch.Tensor | None = None) -> torch.Tensor:
+    """One copy pipelined by hand through ``depth`` shared-memory slots of
+    ``rows_per_chunk`` rows each. ``out`` must not alias ``x`` and both
+    must be 16-byte aligned (TMA bulk copies)."""
+    if not 2 <= depth <= DMA_MAX_DEPTH:
+        raise ValueError(
+            f"depth must be in [2, {DMA_MAX_DEPTH}], got {depth}: one slot "
+            "cannot overlap its own load and store"
+        )
+    out = check_membw_args(x, out)
+    rows = _chunk(rows_per_chunk, "dma", x.dtype)
+    if x.device.type == "cpu":
+        return copy_plain(x, out)
+    _require_cuda(x)
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("the dma copy needs 16-byte aligned tensors (TMA "
+                         "bulk copies); got an offset view")
+    ring = depth * rows * LANES * x.element_size()
+    limit = torch.cuda.get_device_properties(
+        x.device).shared_memory_per_block_optin
+    if ring + 8 * DMA_MAX_DEPTH > limit:
+        raise ValueError(
+            f"the dma ring ({depth} slots x {rows} rows = {ring} B) exceeds "
+            f"the {limit} B of shared memory a block can use"
+        )
+    launch_kernel("tc_membw_dma", x, x.data_ptr(), out.data_ptr(), x.numel(),
+            KERNEL_DTYPE_CODES[x.dtype], rows, depth)
+    step_dma.launches += 1
+    return out
+
+
+step_chunked.launches = 0
+step_stream.launches = 0
+step_dma.launches = 0
+#: every kernel wrapper of this module (chip_smoke.py resets and reads
+#: their counts)
+WRAPPERS = (step_chunked, step_stream, step_dma)
+
+
+def step_torch(x: torch.Tensor, b: torch.Tensor, s: torch.Tensor,
+               z: torch.Tensor, op: str,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """The ``torch`` arm's body (JAX ``_lax_body``): one PyTorch op into
+    ``out``, with ``s`` and ``z`` 0-d tensors already in ``x``'s dtype.
+    copy is ``x + z`` (not an identity, as in the lax arm); triad is
+    ``b + x·s`` as one ``addcmul``."""
+    check_op(op)
+    if out is None:
+        out = torch.empty_like(x)
+    if op == "copy":
+        return torch.add(x, z, out=out)
+    if op == "scale":
+        return torch.mul(x, s, out=out)
+    if op == "add":
+        return torch.add(x, b, out=out)
+    return torch.addcmul(b, x, s, out=out)
+
+
+def chained(x: torch.Tensor, b: torch.Tensor, s: float, z: float, op: str,
+            impl: str, iters: int, rows_per_chunk: int | None = None,
+            aliased: bool = False,
+            depth: int = DEFAULT_DMA_DEPTH) -> torch.Tensor:
+    """``iters`` chained applications of ``op`` through arm ``impl``
+    (JAX ``_chained``); returns the iterate. ``x`` itself is only read.
+
+    The loop ping-pongs two buffers allocated once per call, as
+    ``kernels.run_steps`` does; with ``aliased`` it copies ``x`` once and
+    runs every pass in place. ``s`` and ``z`` are the runtime scalar and
+    zero (1.0 and 0.0 in the timed loop: every op is then the identity).
+    """
+    check_op(op)
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    if impl in ("stream", "dma") and op != "copy":
+        raise ValueError(f"the {impl} arm is a copy arm (op='copy' only)")
+    if impl == "torch":
+        if aliased:
+            raise ValueError("aliased applies to the kernel arms only")
+        st, zt = (
+            torch.full((), v, dtype=torch.float32, device=x.device).to(x.dtype)
+            for v in (s, z)
+        )
+
+        def step(src, dst):
+            return step_torch(src, b, st, zt, op, out=dst)
+    elif impl == "chunked":
+        def step(src, dst):
+            return step_chunked(src, b, s, op, rows_per_chunk, aliased,
+                                out=dst)
+    elif impl == "stream":
+        def step(src, dst):
+            return step_stream(src, rows_per_chunk, out=dst, aliased=aliased)
+    elif impl == "dma":
+        if aliased:
+            raise ValueError("the dma arm owns its schedule; aliased does "
+                             "not apply to it")
+
+        def step(src, dst):
+            return step_dma(src, rows_per_chunk, depth, out=dst)
+    else:
+        raise ValueError(f"impl must be one of {MEMBW_IMPLS}, got {impl!r}")
+    if iters == 0:
+        return x.clone()
+    if aliased:
+        buf = x.clone()
+        for _ in range(iters):
+            step(buf, buf)
+        return buf
+    bufs = (torch.empty_like(x), torch.empty_like(x))
+    src = x
+    for i in range(iters):
+        src = step(src, bufs[i % 2])
+    return src

@@ -1,7 +1,9 @@
-"""The stencil kernels' dtype contract and the field's host/device form.
+"""The kernels' dtype contract, argument checks and the field's
+host/device form.
 
 Port of the dtype half of ``tpu_comm/kernels/tiling.py``
-(``f32_compute``, ``narrow_store``, ``check_pallas_dtype``). Every kernel
+(``f32_compute``, ``narrow_store``, ``check_pallas_dtype``) and of its
+row ``knob_tag`` and ``DEFAULT_DMA_DEPTH``. Every kernel
 and every plain version computes in float32 and narrows once per step
 with round-to-nearest-even; HBM traffic stays in the field's dtype. The
 TPU arm's VMEM budget planner has no counterpart here: the CUDA kernels
@@ -25,7 +27,7 @@ DTYPES = {
     "float16": torch.float16,
 }
 #: dtype codes of the CUDA launchers (kFloat32/kBFloat16/kFloat16 in
-#: csrc/jacobi_stream.cu)
+#: csrc/jacobi_stream.cu and csrc/membw.cu)
 KERNEL_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -90,6 +92,91 @@ def check_kernel_args(
     return out
 
 
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors' byte ranges share any byte."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    a1 = a0 + a.numel() * a.element_size()
+    b1 = b0 + b.numel() * b.element_size()
+    return a.device == b.device and a0 < b1 and b0 < a1
+
+
+def check_membw_args(
+    x: torch.Tensor, out: torch.Tensor | None, aliased: bool = False,
+    *others: torch.Tensor,
+) -> torch.Tensor:
+    """Validate the input of a membw kernel or its plain version; return
+    the output (``x`` itself when ``aliased`` and ``out`` is None,
+    else ``out``, allocated when None).
+
+    ``x`` and every operand in ``others`` must be contiguous tensors of
+    one shape, dtype and device, of the kernels' dtypes, with a multiple
+    of 128 elements (the TPU kernels' ``(rows, 128)`` view). ``out`` may
+    be ``x`` exactly when ``aliased`` (the in-place knob); any other
+    overlap of ``out`` with an input is refused."""
+    if x.dtype not in KERNEL_DTYPE_CODES:
+        raise ValueError(f"membw kernels take {tuple(DTYPES)}, got {x.dtype}")
+    if x.numel() < 128 or x.numel() % 128:
+        raise ValueError(
+            f"membw kernels need a multiple of 128 elements, got {x.numel()}"
+        )
+    for t in (x, *others):
+        if not t.is_contiguous():
+            raise ValueError("membw kernels need contiguous tensors")
+    for t in others:
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(
+                "every operand must have the input's shape, dtype and device"
+            )
+    if out is None:
+        return x if aliased else torch.empty_like(x)
+    if (
+        out.shape != x.shape
+        or out.dtype != x.dtype
+        or out.device != x.device
+        or not out.is_contiguous()
+    ):
+        raise ValueError(
+            "out must be a contiguous tensor of the input's shape, dtype "
+            "and device"
+        )
+    if aliased:
+        if out.data_ptr() != x.data_ptr():
+            raise ValueError("aliased=True writes into the input: out must "
+                             "be the input itself")
+    elif _overlaps(out, x):
+        raise ValueError("out must not alias the input unless aliased=True")
+    if any(_overlaps(out, t) for t in others):
+        raise ValueError("out must not alias the second operand")
+    return out
+
+
+#: the manual DMA copy's classic double-buffered slot count (the JAX
+#: package's ``tiling.DEFAULT_DMA_DEPTH``)
+DEFAULT_DMA_DEPTH = 2
+
+
+def knob_tag(aliased: bool = False, depth: int | None = None) -> dict:
+    """The row's ``knobs`` fragment, as the JAX package's
+    ``tiling.knob_tag`` writes it: only non-default knobs appear
+    (``aliased`` when set, ``depth`` when not the default 2). The JAX
+    ``dimsem`` knob has no counterpart here: CUDA blocks are unordered."""
+    tag = {}
+    if aliased:
+        tag["aliased"] = True
+    if depth is not None and depth != DEFAULT_DMA_DEPTH:
+        tag["depth"] = int(depth)
+    return tag
+
+
+def launch_kernel(symbol: str, t: torch.Tensor, *args) -> None:
+    """Call the C launcher ``symbol`` of ``csrc/`` on ``t``'s device with
+    ``args`` and, last, the device's current stream."""
+    from tpu_comm_torch.kernels._build import launch
+
+    with torch.cuda.device(t.device):
+        launch(symbol, *args, torch.cuda.current_stream(t.device).cuda_stream)
+
+
 def launch_stencil(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
                    chunk: int) -> None:
     """Launch a stencil kernel of ``csrc/`` on ``u``'s device and current
@@ -98,14 +185,10 @@ def launch_stencil(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
     :func:`check_kernel_args` first."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    from tpu_comm_torch.kernels._build import launch
-
-    with torch.cuda.device(u.device):
-        launch(
-            symbol, u.data_ptr(), out.data_ptr(), *u.shape,
-            KERNEL_DTYPE_CODES[u.dtype], int(bc == "periodic"), chunk,
-            torch.cuda.current_stream(u.device).cuda_stream,
-        )
+    launch_kernel(
+        symbol, u, u.data_ptr(), out.data_ptr(), *u.shape,
+        KERNEL_DTYPE_CODES[u.dtype], int(bc == "periodic"), chunk,
+    )
 
 
 def from_numpy_field(
