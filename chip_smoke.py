@@ -11,9 +11,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``build/torch_ext/`` (one ``nvcc`` per source, all at once; timed);
 3. every kernel against its plain PyTorch version on the card, required
    bitwise equal (``torch.equal``):
-   - stencils: kernel x {float32, bfloat16, float16} x {dirichlet,
-     periodic}, 20 steps at full size, plus ragged shapes and a
-     non-default chunk;
+   - stencils, the stream and the block kernels: kernel x {float32,
+     bfloat16, float16} x {dirichlet, periodic}, 20 steps at full size,
+     plus ragged shapes and (stream) a non-default chunk;
+   - the face pack: the four packed faces x every dtype at 512^3 and at
+     ragged shapes;
    - membw: every op a kernel serves x every dtype x aliased on/off x the
      default and a non-default chunk, at 2^26 elements and at a ragged
      size; the dma copy at depths 2, 3 and 4, also with fewer chunks per
@@ -21,14 +23,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
      its neighbour loads (``cuobjdump``);
 4. the main path, in process through ``cli.main``, each run with every
    kernel's launch count set to 0 just before and read just after:
-   ``stencil --impl auto --verify`` for dims 1, 2 and 3 at full size, and
+   ``stencil --impl auto --verify`` for dims 1, 2 and 3 at full size,
    ``membw --op OP --impl ARM`` for every (op, arm) pair the JAX CLI
-   accepts; each row must say ``platform: cuda`` and ``verified: true``,
-   the run's kernel must have launched and no other;
+   accepts, and the mesh runs ``stencil --mesh 1[,1[,1]]`` (world size 1,
+   the NCCL group created; a periodic axis exchanges with its own rank
+   through NCCL) for the block arm in 1D, 2D and 3D and the stream,
+   overlap and auto arms in 3D, the 3D ones with ``--pack kernel``, each
+   dirichlet and periodic, plus one ``--tol`` run whose residual goes
+   through ``all_reduce``; each row must say ``platform: cuda`` and
+   ``verified: true``, the run's kernels must have launched and no other;
 5. times at the full float32 sizes (CUDA events): kernel, plain version,
    one library call computing the same function (a yardstick the port
    never calls), and for each stencil a device-to-device ``copy_`` and the
-   port's own chunked copy kernel at the same bytes;
+   port's own chunked copy kernel at the same bytes; and per 3D mesh arm
+   the whole distributed step (exchange, kernel, face recompute, freeze)
+   beside its kernel alone;
 6. the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
@@ -57,12 +66,32 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 #: per output element: the adds and the one multiply of the update
 OPS_PER_POINT = {1: 2, 2: 4, 3: 6}
+#: stencil arm -> dim -> (kernel, the TPU kernel body it replaces)
 KERNELS = {
-    1: ("jacobi1d_stream", "tpu_comm/kernels/jacobi1d.py:318"),
-    2: ("jacobi2d_stream", "tpu_comm/kernels/jacobi2d.py:293"),
-    3: ("jacobi3d_stream", "tpu_comm/kernels/jacobi3d.py:153"),
+    "stream": {
+        1: ("jacobi1d_stream", "tpu_comm/kernels/jacobi1d.py:318"),
+        2: ("jacobi2d_stream", "tpu_comm/kernels/jacobi2d.py:293"),
+        3: ("jacobi3d_stream", "tpu_comm/kernels/jacobi3d.py:153"),
+    },
+    "block": {
+        1: ("jacobi1d_block", "tpu_comm/kernels/jacobi1d.py:139"),
+        2: ("jacobi2d_block", "tpu_comm/kernels/jacobi2d.py:147"),
+        3: ("jacobi3d_block", "tpu_comm/kernels/jacobi3d.py:108"),
+    },
 }
-SOURCE = "tpu_comm_torch/csrc/jacobi_stream.cu"
+SOURCES = {"stream": "tpu_comm_torch/csrc/jacobi_stream.cu",
+           "block": "tpu_comm_torch/csrc/jacobi_block.cu"}
+PACK_KERNEL = ("pack_faces", "tpu_comm/kernels/pack.py:48")
+PACK_SOURCE = "tpu_comm_torch/csrc/pack.cu"
+PACK_RAGGED = [(1, 1, 1), (3, 5, 7), (19, 23, 45), (130, 9, 33)]
+#: DRAM sector: what one x-face element costs to read (one per row of nx)
+SECTOR_BYTES = 32
+#: the mesh runs of phase 4: (dim, --impl, --pack), each in both bc
+MESH_RUNS = [(1, "block", "fused"), (2, "block", "fused"),
+             (3, "block", "kernel"), (3, "stream", "kernel"),
+             (3, "overlap", "kernel"), (3, "auto", "fused")]
+#: loop lengths of a mesh run (the eager face work makes a step long)
+MESH_ITERS = 20
 RAGGED = {
     1: [(3,), (1000001,)],
     2: [(3, 3), (37, 301), (1001, 37)],
@@ -130,41 +159,93 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernels(torch, mods) -> dict:
-    """Phase 3: kernel vs plain version, bitwise; returns the max abs
-    error per dim (0.0 when every case was equal)."""
+def queued_ms(torch, fn, reps: int, filler) -> tuple[float, bool]:
+    """Device milliseconds per call of a short ``fn`` whose back-to-back
+    calls would be paced by the host: the calls are queued behind
+    ``filler()``, device work long enough for the host to enqueue them
+    all, so they run on the card without gaps. Returns the time and
+    whether the host did finish enqueueing before the filler ended."""
+    fn()
+    torch.cuda.synchronize()
+    fill_end = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    filler()
+    fill_end.record()
+    start.record()
+    for _ in range(reps):
+        fn()
+    queued = not fill_end.query()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, queued
+
+
+def check_kernels(torch, mods, arm: str) -> dict:
+    """Phase 3: the ``arm`` kernel of each dim vs the plain version,
+    bitwise; returns the max abs error per dim (0.0 when every case was
+    equal)."""
     from tpu_comm_torch.kernels import run_steps
 
     errs = {}
     for dim, mod in mods.items():
+        name = KERNELS[arm][dim][0]
         cases = [(SIZES[dim],) * dim] + RAGGED[dim]
+        if arm == "block" and dim == 3:
+            cases = cases + [(2, 3, 3)]  # the plane kernel's least depth
         worst = 0.0
         for shape in cases:
             for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 for bc in ("dirichlet", "periodic"):
                     u = random_field(torch, shape, dtype, seed=dim)
-                    got = mod.run(u, CHECK_STEPS, bc=bc)
+                    got = mod.run(u, CHECK_STEPS, bc=bc, impl=arm)
                     want = run_steps(mod.step_plain, u, CHECK_STEPS, bc)
                     torch.cuda.synchronize()
                     err = float((got.float() - want.float()).abs().max())
                     worst = max(worst, err)
                     if not torch.equal(got, want) or got.dtype != dtype:
-                        fail(f"{KERNELS[dim][0]} {shape} {dtype} {bc}: "
+                        fail(f"{name} {shape} {dtype} {bc}: "
                              f"kernel != plain (max abs err {err})")
-                    if shape == cases[0] and bc == "periodic":
+                    if (arm == "stream" and shape == cases[0]
+                            and bc == "periodic"):
                         key = "planes_per_chunk" if dim == 3 else \
                             "rows_per_chunk"
                         odd = mod.run(u, 2, bc=bc, **{key: ODD_CHUNK[dim]})
                         if not torch.equal(odd, mod.run(u, 2, bc=bc)):
-                            fail(f"{KERNELS[dim][0]}: result depends on "
-                                 f"the chunk")
+                            fail(f"{name}: result depends on the chunk")
                     del u, got, want
         errs[dim] = worst
-        emit({"check": {"kernel": KERNELS[dim][0], "shapes": cases,
+        emit({"check": {"kernel": name, "shapes": cases,
                         "steps": CHECK_STEPS, "max_abs_err": worst,
                         "tolerance": "bitwise (torch.equal)",
                         "elapsed_s": time.perf_counter() - T0}})
     return errs
+
+
+def check_pack(torch) -> float:
+    """Phase 3, face pack: the kernel's four faces vs the plain version,
+    bitwise; returns the max abs error (0.0 when every case was equal)."""
+    from tpu_comm_torch.kernels import pack
+
+    worst = 0.0
+    cases = [(SIZES[3],) * 3] + PACK_RAGGED
+    for shape in cases:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            u = random_field(torch, shape, dtype, seed=40)
+            got, want = pack.pack_faces(u), pack.pack_faces_plain(u)
+            torch.cuda.synchronize()
+            for name, g, w in zip(pack.FACE_NAMES[2:], got, want):
+                err = float((g.float() - w.float()).abs().max())
+                worst = max(worst, err)
+                if g.dtype != dtype or not torch.equal(g, w):
+                    fail(f"pack_faces {shape} {dtype} {name}: kernel != "
+                         f"plain (max abs err {err})")
+            del u, got, want
+    emit({"check": {"kernel": PACK_KERNEL[0], "shapes": cases,
+                    "max_abs_err": worst,
+                    "tolerance": "bitwise (torch.equal)",
+                    "elapsed_s": time.perf_counter() - T0}})
+    return worst
 
 
 def drive_main_path(torch, mods, counters) -> dict:
@@ -184,7 +265,7 @@ def drive_main_path(torch, mods, counters) -> dict:
                 "--verify-iters", str(VERIFY_ITERS), "--jsonl", str(path),
             ])
             counts = {k: w.launches for k, w in counters.items()}
-            name = KERNELS[dim][0]
+            name = KERNELS["stream"][dim][0]
             if rc != 0:
                 fail(f"stencil --dim {dim} exited {rc}")
             row = json.loads(path.read_text().splitlines()[-1])
@@ -206,6 +287,63 @@ def drive_main_path(torch, mods, counters) -> dict:
     return launches
 
 
+def drive_mesh(torch, counters) -> dict:
+    """Phase 4, the distributed stencil at world size 1: ``stencil --mesh
+    1[,1[,1]]`` per (dim, arm, pack) and bc, and one ``--tol`` run; returns
+    each kernel's launches summed over the runs."""
+    from tpu_comm_torch import cli
+
+    launches = {name: 0 for name in counters}
+    runs = [(dim, impl, pack, bc, []) for dim, impl, pack in MESH_RUNS
+            for bc in ("dirichlet", "periodic")]
+    runs.append((2, "block", "fused", "dirichlet",
+                 ["--tol", "1e-3", "--check-every", "4"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, (dim, impl, pack, bc, extra) in enumerate(runs):
+            path = Path(tmp) / f"mesh{n}.jsonl"
+            for w in counters.values():
+                w.launches = 0
+            argv = ["stencil", "--mesh", ",".join(["1"] * dim), "--dim",
+                    str(dim), "--size", str(SIZES[dim]), "--impl", impl,
+                    "--pack", pack, "--bc", bc, "--verify",
+                    "--verify-iters", str(VERIFY_ITERS), "--iters",
+                    str(8 if extra else MESH_ITERS), "--warmup", "2",
+                    "--reps", "5", "--jsonl", str(path), *extra]
+            rc = cli.main(argv)
+            counts = {k: w.launches for k, w in counters.items()}
+            what = " ".join(argv[1:-2] if not extra else argv[1:])
+            if rc != 0:
+                fail(f"{what} exited {rc}")
+            row = json.loads(path.read_text().splitlines()[-1])
+            arm = "overlap" if impl == "auto" else impl
+            want = {"platform": "cuda", "verified": True, "impl": arm,
+                    "pack": pack, "mesh": [1] * dim, "topo_plan": None,
+                    "workload": f"stencil{dim}d-dist"
+                    + ("-conv" if extra else "")}
+            got = {k: row.get(k) for k in want}
+            if got != want:
+                fail(f"{what}: row says {got}, expected {want}")
+            expected = set()
+            if arm in KERNELS:
+                expected.add(KERNELS[arm][dim][0])
+            if pack == "kernel":
+                expected.add(PACK_KERNEL[0])
+            launched = {k for k, c in counts.items() if c}
+            if launched != expected:
+                fail(f"{what} launched {sorted(launched)}, expected "
+                     f"{sorted(expected)}: {counts}")
+            for k in expected:
+                launches[k] += counts[k]
+            emit({"main_path": {
+                "mesh": [1] * dim, "impl": arm, "pack": pack, "bc": bc,
+                "tol": bool(extra),
+                "launches": {k: counts[k] for k in sorted(expected)},
+                "gbps_eff": row["gbps_eff"], "iters": row["iters"],
+                "secs_per_iter": row["secs_per_iter"],
+                "elapsed_s": time.perf_counter() - T0}})
+    return launches
+
+
 def library_call(torch, dim: int):
     """One PyTorch call computing the periodic stencil: a circular-padded
     convolution with the stencil's weights."""
@@ -223,8 +361,9 @@ def library_call(torch, dim: int):
     return conv
 
 
-def measure_times(torch, mods) -> dict:
-    """Phase 5: per-step times at the full float32 sizes."""
+def measure_times(torch, mods, arm: str) -> dict:
+    """Phase 5: per-step times of the ``arm`` kernels at the full float32
+    sizes."""
     from tpu_comm_torch.kernels import membw
 
     torch.backends.cudnn.allow_tf32 = False
@@ -235,11 +374,9 @@ def measure_times(torch, mods) -> dict:
         u = random_field(torch, shape, torch.float32, seed=10 + dim)
         dst = torch.empty_like(u)
         n = u.numel()
-        mod.step_stream.launches = 0
-        mod.run(u, 100, bc="dirichlet")
-        per_run = mod.step_stream.launches
-        kernel_ms = time_ms(
-            torch, lambda: mod.step_stream(u, "dirichlet", out=dst), 50)
+        step = mod.STEPS[arm]
+        kernel_ms = time_ms(torch, lambda: step(u, "dirichlet", out=dst), 50)
+        periodic_ms = time_ms(torch, lambda: step(u, "periodic", out=dst), 50)
         plain_ms = time_ms(
             torch, lambda: mod.step_plain(u, "dirichlet", out=dst), 10)
         copy_ms = time_ms(torch, lambda: dst.copy_(u), 50)
@@ -260,9 +397,9 @@ def measure_times(torch, mods) -> dict:
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
         out[dim] = {
-            "kernel": KERNELS[dim][0], "shape": list(shape),
+            "kernel": KERNELS[arm][dim][0], "shape": list(shape),
             "dtype": "float32", "bc": "dirichlet",
-            "kernel_ms": kernel_ms, "launches_per_run": per_run,
+            "kernel_ms": kernel_ms, "kernel_periodic_ms": periodic_ms,
             "plain_ms": plain_ms,
             "library_ms": library_ms,
             "library_call": f"torch.nn.Conv{dim}d(padding_mode='circular')",
@@ -281,6 +418,103 @@ def measure_times(torch, mods) -> dict:
         del u, dst, x, conv, flat_u, flat_dst
         torch.cuda.empty_cache()
     return out
+
+
+def measure_pack(torch) -> dict:
+    """Phase 5, face pack at 512^3 float32: kernel, plain version, the
+    four ``.contiguous()`` slices as the library yardstick and a
+    ``copy_`` of the faces' bytes, all as device time (:func:`queued_ms`),
+    and the wrapper's back-to-back call time."""
+    from tpu_comm_torch.kernels import pack
+
+    nz = ny = nx = SIZES[3]
+    u = random_field(torch, (nz, ny, nx), torch.float32, seed=41)
+    item = u.element_size()
+    faces = (2 * nz * nx + 2 * nz * ny) * item
+    copy_src = torch.empty(faces // item, device="cuda")
+    copy_dst = torch.empty_like(copy_src)
+    big = torch.empty_like(u)
+
+    def filler():  # ~8 ms of copies: room to enqueue 20 short calls
+        for _ in range(24):
+            big.copy_(u)
+
+    def library():
+        return (u[:, 0, :].contiguous(), u[:, -1, :].contiguous(),
+                u[:, :, 0].contiguous(), u[:, :, -1].contiguous())
+
+    # the pack takes microseconds on the card, less than its Python call:
+    # back-to-back calls time the host (call_ms), queued calls the card
+    call_ms = time_ms(torch, lambda: pack.pack_faces(u), 50)
+    timed = {
+        name: queued_ms(torch, fn, 20, filler)
+        for name, fn in (("kernel", lambda: pack.pack_faces(u)),
+                         ("plain", lambda: pack.pack_faces_plain(u)),
+                         ("library", library),
+                         ("copy", lambda: copy_dst.copy_(copy_src)))
+    }
+    if not all(queued for _, queued in timed.values()):
+        fail(f"pack timing: the host fell behind the filler: {timed}")
+    kernel_ms, plain_ms, library_ms, copy_ms = (
+        timed[k][0] for k in ("kernel", "plain", "library", "copy"))
+    # the x faces cost a sector per element, the y faces their rows
+    nbytes = 2 * nz * ny * SECTOR_BYTES + 2 * nz * nx * item + faces
+    out = {
+        "kernel": PACK_KERNEL[0], "shape": [nz, ny, nx], "dtype": "float32",
+        "kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "library_call": "four u[:, 0, :].contiguous()-style slice copies",
+        "copy_ms": copy_ms, "bytes": nbytes, "ops": 0,
+        "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    emit({"times": {**out, "elapsed_s": time.perf_counter() - T0}})
+    return out
+
+
+def measure_dist_steps(torch, mods) -> list:
+    """Phase 5, the whole distributed step at 512^3 float32 on a mesh of
+    one (exchange through NCCL, update, face recompute, freeze) beside
+    its update kernel alone and its exchange alone, per arm and bc."""
+    from tpu_comm_torch.comm import halo, launch
+    from tpu_comm_torch.kernels.distributed import make_local_step
+    from tpu_comm_torch.topo import make_cart_mesh
+
+    shape = (SIZES[3],) * 3
+    u = random_field(torch, shape, torch.float32, seed=42)
+    dst = torch.empty_like(u)
+    rows = []
+    with launch.process_group("nccl"):
+        for impl, pack in (("block", "kernel"), ("block", "fused"),
+                           ("stream", "kernel"), ("overlap", "kernel"),
+                           ("torch", "fused")):
+            for bc in ("dirichlet", "periodic"):
+                cart = make_cart_mesh(3, periodic=bc == "periodic")
+                step = make_local_step(cart, bc, impl, pack=pack)
+                dist_step_ms = time_ms(torch, lambda: step(u, out=dst), 20)
+                # the exchange alone: pack, post, wait (the torch arm's
+                # chained pad_halo has no such part)
+                exchange_ms = None
+                if impl != "torch":
+                    start = (halo.start_exchange_ghosts_3d_packed
+                             if pack == "kernel"
+                             else halo.start_exchange_ghosts)
+                    exchange_ms = time_ms(
+                        torch, lambda: start(u, cart).wait(), 20)
+                kernel_ms = None
+                if impl in KERNELS:
+                    kernel = mods[3].STEPS[impl]
+                    kernel_ms = time_ms(
+                        torch, lambda: kernel(u, "periodic", out=dst), 20)
+                rows.append({"impl": impl, "pack": pack, "bc": bc,
+                             "shape": list(shape), "dtype": "float32",
+                             "dist_step_ms": dist_step_ms,
+                             "kernel_ms": kernel_ms,
+                             "exchange_ms": exchange_ms})
+                emit({"dist_step": {**rows[-1],
+                                    "elapsed_s": time.perf_counter() - T0}})
+    del u, dst
+    torch.cuda.empty_cache()
+    return rows
 
 
 def membw_kernel_of(op: str, arm: str) -> str:
@@ -495,7 +729,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from tpu_comm_torch.bench.timing import nvidia_smi_line
-    from tpu_comm_torch.kernels import _build, membw, stencil_module
+    from tpu_comm_torch.kernels import _build, membw, pack, stencil_module
 
     smi = nvidia_smi_line()
     if smi is None:
@@ -514,32 +748,55 @@ def main() -> int:
                     "build_dir": str(_build.BUILD_DIR.relative_to(ROOT))}})
 
     mods = {dim: stencil_module(dim) for dim in (1, 2, 3)}
-    counters = {KERNELS[dim][0]: mods[dim].step_stream for dim in mods}
+    counters = {
+        KERNELS[arm][dim][0]: mods[dim].STEPS[arm]
+        for arm in KERNELS for dim in mods
+    }
+    counters[PACK_KERNEL[0]] = pack.pack_faces
     counters.update({f"membw.{w.__name__}": w for w in membw.WRAPPERS})
-    errs = check_kernels(torch, mods)
+    errs = {arm: check_kernels(torch, mods, arm) for arm in KERNELS}
+    pack_err = check_pack(torch)
     membw_errs = check_membw(torch)
     check_stream_loads(libs)
     launches = drive_main_path(torch, mods, counters)
     membw_launches = drive_membw(torch, counters)
-    times = measure_times(torch, mods)
+    mesh_launches = drive_mesh(torch, counters)
+    times = {arm: measure_times(torch, mods, arm) for arm in KERNELS}
+    pack_times = measure_pack(torch)
     membw_times = measure_membw(torch)
+    measure_dist_steps(torch, mods)
 
     print(smi, flush=True)
-    stencil_rows = [
-        {
-            "name": KERNELS[dim][0], "route": "cuda", "source": SOURCE,
-            "replaces": KERNELS[dim][1], "launches": launches[dim],
-            "max_abs_err": errs[dim], "ms": times[dim]["kernel_ms"],
-            "plain_ms": times[dim]["plain_ms"],
-            "bound_ms": times[dim]["bound_ms"],
-            "bound_by": times[dim]["bound_by"],
-            "library_ms": times[dim]["library_ms"],
-            "copy_ms": times[dim]["copy_ms"],
-            "chunked_copy_ms": times[dim]["chunked_copy_ms"],
-            "shape": times[dim]["shape"], "dtype": "float32",
-        }
-        for dim in (1, 2, 3)
-    ]
+    stencil_rows = []
+    for arm in KERNELS:
+        for dim in (1, 2, 3):
+            name, replaces = KERNELS[arm][dim]
+            t = times[arm][dim]
+            stencil_rows.append({
+                "name": name, "route": "cuda", "source": SOURCES[arm],
+                "replaces": replaces,
+                # the stream kernels: the single-device run plus the mesh
+                # runs that use them; the block kernels: their mesh runs
+                "launches": mesh_launches[name]
+                + (launches[dim] if arm == "stream" else 0),
+                "max_abs_err": errs[arm][dim], "ms": t["kernel_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "copy_ms": t["copy_ms"],
+                "chunked_copy_ms": t["chunked_copy_ms"],
+                "shape": t["shape"], "dtype": "float32",
+            })
+    pack_row = {
+        "name": PACK_KERNEL[0], "route": "cuda", "source": PACK_SOURCE,
+        "replaces": PACK_KERNEL[1],
+        "launches": mesh_launches[PACK_KERNEL[0]], "max_abs_err": pack_err,
+        "ms": pack_times["kernel_ms"], "plain_ms": pack_times["plain_ms"],
+        "bound_ms": pack_times["bound_ms"],
+        "bound_by": pack_times["bound_by"],
+        "library_ms": pack_times["library_ms"],
+        "copy_ms": pack_times["copy_ms"], "call_ms": pack_times["call_ms"],
+        "shape": pack_times["shape"], "dtype": "float32",
+    }
     membw_rows = []
     for name, (replaces, _, op) in MEMBW_KERNELS.items():
         t = membw_times[(name, op)]
@@ -551,7 +808,7 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "op": op, "shape": t["shape"], "dtype": "float32",
         })
-    emit({"kernels": stencil_rows + membw_rows})
+    emit({"kernels": stencil_rows + [pack_row] + membw_rows})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

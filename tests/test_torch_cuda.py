@@ -159,3 +159,102 @@ def test_membw_wrappers_count_launches_and_check_arguments(card):
     with pytest.raises(ValueError, match="take"):
         membw.step_chunked(x.double(), b.double(), 1.0, "copy")
     assert [w.launches for w in membw.WRAPPERS] == [c + 1 for c in before]
+
+
+BLOCK_SHAPES = {
+    1: SHAPES[1] + [(5,)],
+    2: SHAPES[2] + [(64, 256), (1001, 36)],
+    3: SHAPES[3] + [(2, 3, 3), (130, 9, 33), (4, 8, 128)],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_block_kernel_bitwise_equals_plain_version(card, dim, bc, dtype):
+    mod = MODS[dim]
+    for shape in BLOCK_SHAPES[dim]:
+        u = _field(shape, dtype, seed=len(shape))
+        got = mod.run(u, 5, bc=bc, impl="block")
+        want = run_steps(mod.step_plain, u, 5, bc)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want), shape
+        if min(shape) >= 3:  # the stream arm takes no plane pair
+            assert torch.equal(got, mod.run(u, 5, bc=bc)), shape
+
+
+@pytest.mark.parametrize("dim", [1, 2])
+def test_block_kernel_takes_views_off_the_16_byte_grid(card, dim):
+    """An offset view takes the one-element-per-thread path."""
+    base = _field((1 << 16) + 8, torch.float32)
+    u = base[1:1 + 60000] if dim == 1 else base[3:3 + 200 * 300].view(200, 300)
+    for bc in ("dirichlet", "periodic"):
+        assert torch.equal(MODS[dim].step_block(u, bc),
+                           MODS[dim].step_plain(u, bc))
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_block_wrapper_counts_launches_and_checks_its_arguments(card, dim):
+    mod = MODS[dim]
+    u = _field(SHAPES[dim][1], torch.float32)
+    before = mod.step_block.launches
+    out = torch.empty_like(u)
+    assert mod.step_block(u, out=out) is out
+    assert mod.step_block.launches == before + 1
+    with pytest.raises(ValueError, match="alias"):
+        mod.step_block(u, out=u)
+    with pytest.raises(ValueError, match="takes"):
+        mod.step_block(u.double())
+    with pytest.raises(ValueError, match="extents must be >="):
+        mod.step_block(u[(slice(0, 1),) * dim].contiguous())
+    assert mod.step_block.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_pack_kernel_bitwise_equals_plain_version(card, dtype):
+    from tpu_comm_torch.kernels import pack
+
+    for shape in [(1, 1, 1), (3, 5, 7), (19, 23, 45), (130, 9, 33),
+                  (64, 64, 64), (4, 8, 128)]:
+        u = _field(shape, dtype, seed=3)
+        before = pack.pack_faces.launches
+        got = pack.pack_faces(u)
+        torch.cuda.synchronize()
+        assert pack.pack_faces.launches == before + 1
+        for g, w in zip(got, pack.pack_faces_plain(u)):
+            assert g.is_contiguous() and torch.equal(g, w), shape
+    with pytest.raises(ValueError, match="contiguous"):
+        pack.pack_faces(u.transpose(0, 1))
+    with pytest.raises(ValueError, match="takes"):
+        pack.pack_faces(u.double())
+
+
+@pytest.mark.parametrize("impl,pack", [("torch", "fused"),
+                                       ("overlap", "kernel"),
+                                       ("block", "kernel"),
+                                       ("stream", "fused")])
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+def test_mesh_of_one_on_the_card_through_nccl(card, bc, impl, pack):
+    """``run_distributed_bench`` at world size 1: the NCCL group is created, a periodic
+    axis exchanges with its own rank through NCCL's P2P calls, and the
+    gathered field passes the golden."""
+    from tpu_comm_torch.bench import stencil
+    from tpu_comm_torch.kernels import pack as packmod
+
+    counters = [MODS[3].step_block, MODS[3].step_stream, packmod.pack_faces]
+    before = [w.launches for w in counters]
+    rec = stencil.run_distributed_bench(stencil.StencilConfig(
+        dim=3, size=48, iters=4, bc=bc, impl=impl, pack=pack, mesh=(1, 1, 1),
+        verify=True, verify_iters=6, warmup=1, reps=2,
+    ))
+    assert rec["platform"] == "cuda" and rec["verified"] is True
+    assert rec["workload"] == "stencil3d-dist" and rec["mesh"] == [1, 1, 1]
+    launched = [w.launches > b for w, b in zip(counters, before)]
+    assert launched == [impl == "block", impl == "stream", pack == "kernel"]
+    tol = stencil.run_distributed_bench(stencil.StencilConfig(
+        dim=3, size=48, iters=40, tol=1e-3, check_every=5, bc=bc, impl=impl,
+        pack=pack, mesh=(1, 1, 1), verify=True, warmup=1, reps=1,
+    ))
+    assert tol["workload"] == "stencil3d-dist-conv" and tol["verified"]

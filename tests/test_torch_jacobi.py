@@ -5,7 +5,12 @@ arm (Pallas in interpret mode, as the JAX package's own tests run it)
 and through ``tpu_comm_torch``'s ``step_stream``/``run`` on CPU tensors,
 which run the kernels' plain PyTorch versions.
 
-Contract: float32 is bitwise after 1 and 4 steps. bfloat16 and float16
+The ``block`` arm (``step_block``, the port of the whole-field
+``step_pallas`` kernels) is bitwise against ``step_pallas`` in every
+dtype and bc: those kernels compute every cell in float32 and only copy
+the dirichlet boundary back outside.
+
+Contract of the stream arm: float32 is bitwise after 1 and 4 steps. bfloat16 and float16
 are bitwise after one step except, for periodic runs, the cells the JAX
 arm computes outside its kernel in the narrow dtype (the two 1D
 endpoints, the 2D top and bottom rows), which stay within 2 ulps; after
@@ -119,6 +124,20 @@ def test_four_steps_match_jax_stream_arm(dim, bc, dtype):
 
 
 @pytest.mark.parametrize("kind", ["random", "hot-boundary"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_block_arm_matches_jax_whole_field_arm_bitwise(dim, bc, dtype, kind):
+    uj, ut = _both(dim, dtype, _field(SHAPES[dim], kind))
+    want1 = JAX[dim].step_pallas(uj, bc=bc, interpret=True)
+    got1 = PORT[dim].step_block(ut, bc=bc)
+    np.testing.assert_array_equal(_port_bits(got1), _bits(np.asarray(want1)))
+    want4 = JAX[dim].run(uj, 4, bc=bc, impl="pallas", interpret=True)
+    got4 = PORT[dim].run(ut, 4, bc=bc, impl="block")
+    np.testing.assert_array_equal(_port_bits(got4), _bits(np.asarray(want4)))
+
+
+@pytest.mark.parametrize("kind", ["random", "hot-boundary"])
 @pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
 @pytest.mark.parametrize("dim", [1, 2, 3])
 def test_odd_sizes_match_step_lax_and_golden(dim, bc, kind):
@@ -136,6 +155,9 @@ def test_odd_sizes_match_step_lax_and_golden(dim, bc, kind):
         got4, np.asarray(JAX[dim].run(jnp.asarray(u), 4, bc=bc, impl="lax"))
     )
     np.testing.assert_array_equal(got4, jref.jacobi_run(u, 4, bc=bc))
+    np.testing.assert_array_equal(
+        PORT[dim].run(ut, 4, bc=bc, impl="block").numpy(), got4
+    )
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float16])
@@ -175,12 +197,26 @@ def test_stream_wrapper_on_cpu_runs_plain_version_into_out(dim):
 
 
 @pytest.mark.parametrize("dim", [1, 2, 3])
-def test_stream_wrapper_never_falls_back_off_the_cpu(dim):
+def test_block_wrapper_on_cpu_runs_plain_version_into_out(dim):
+    ut = from_numpy_field(_field(ODD_SHAPES[dim], "random"), "cpu")
+    out = torch.empty_like(ut)
+    before = PORT[dim].step_block.launches
+    got = PORT[dim].step_block(ut, bc="periodic", out=out)
+    assert got is out
+    assert torch.equal(out, PORT[dim].step_plain(ut, bc="periodic"))
+    assert PORT[dim].step_block.launches == before
+    assert PORT[dim].STEPS == {"stream": PORT[dim].step_stream,
+                               "block": PORT[dim].step_block}
+
+
+@pytest.mark.parametrize("arm", ["step_stream", "step_block"])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_stream_wrapper_never_falls_back_off_the_cpu(dim, arm):
     """A tensor that is neither on the CPU nor on a CUDA card is refused,
     not quietly run through the plain version."""
     u = torch.empty(ODD_SHAPES[dim], device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
-        PORT[dim].step_stream(u)
+        getattr(PORT[dim], arm)(u)
 
 
 def test_bad_bc_is_refused():

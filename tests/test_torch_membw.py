@@ -174,7 +174,9 @@ def test_driver_row_has_the_jax_rows_identity(tmp_path, cfg):
     carry the same identity fields, and the port's passes the JAX row
     schema."""
     path = tmp_path / "rows.jsonl"
-    rec = pdriver.run_membw(_port_cfg(jsonl=str(path), **cfg))
+    # several reps: the slope of two single samples of so short a loop
+    # can come out non-positive on a busy machine, and the rate then null
+    rec = pdriver.run_membw(_port_cfg(jsonl=str(path), reps=7, **cfg))
     jax_impl = {v: k for k, v in pbench.JAX_MEMBW_IMPLS.items()}[cfg["impl"]]
     jrec = jmembw.run_membw(jmembw.MembwConfig(
         backend="cpu-sim", size=N, iters=2, warmup=1, reps=1,

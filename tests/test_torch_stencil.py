@@ -124,18 +124,56 @@ def test_cli_default_backend_is_cuda_and_refuses_without_card(capsys):
     )
 
 
+#: what the CLI answers to each arm name it does not run on one device
+REFUSED_IMPLS = {
+    "lax": "the JAX package's name; the port calls this arm 'torch'",
+    "pallas": "the JAX package's name; the port calls this arm 'block'",
+    "pallas-stream": "the JAX package's name; the port calls this arm "
+                     "'stream'",
+    "pallas-grid": "not yet ported; see ROADMAP.md",
+    "pallas-wave": "not yet ported; see ROADMAP.md",
+    "pallas-multi": "not yet ported; see ROADMAP.md",
+    "overlap": "is an arm of a mesh run: pass --mesh",
+}
+
+
 @pytest.mark.parametrize("impl", ["lax", "pallas", "pallas-grid",
                                   "pallas-stream", "pallas-wave",
                                   "pallas-multi", "overlap"])
 def test_cli_refuses_unported_impls(capsys, impl):
+    """An arm the port has under another name is answered with that name,
+    a mesh arm with ``--mesh``, the rest with the roadmap."""
     rc = cli.main(["stencil", "--backend", "cpu", "--dim", "1", "--size",
                    "1024", "--iters", "2", "--impl", impl])
     assert rc == 2
-    assert "not yet ported; see ROADMAP.md" in capsys.readouterr().err
+    assert REFUSED_IMPLS[impl] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_block_arm_driver_dump_matches_jax_pallas_arm(tmp_path, dim, bc):
+    size = {1: 8192, 2: 128, 3: 128}[dim]
+    load = tmp_path / "u0.npy"
+    np.save(load, jref.init_field((size,) * dim, kind="random", seed=dim))
+    common = dict(dim=dim, size=size, iters=4, bc=bc, load=str(load))
+    jstencil.run_single_device(jstencil.StencilConfig(
+        impl="pallas", backend="cpu-sim", warmup=1, reps=1,
+        dump=str(tmp_path / "a.npy"), **common))
+    rec = pstencil.run_single_device(_port_cfg(
+        impl="block", dump=str(tmp_path / "b.npy"), verify=True,
+        verify_iters=4, jsonl=str(tmp_path / "rows.jsonl"), **common))
+    np.testing.assert_array_equal(np.load(tmp_path / "b.npy"),
+                                  np.load(tmp_path / "a.npy"))
+    assert rec["impl"] == "block" and "chunk" not in rec
+    errors, warnings = validate_row(
+        json.loads((tmp_path / "rows.jsonl").read_text()))
+    assert errors == [] and warnings == []
+    with pytest.raises(ValueError, match="--chunk applies to --impl stream"):
+        pstencil.run_single_device(_port_cfg(impl="block", chunk=8, **common))
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "2,2"], ["--points", "9"], ["--fuse-steps", "2"],
+    ["--halo-parts", "2"], ["--points", "9"], ["--fuse-steps", "2"],
     ["--halo-width", "2"], ["--halo-wire", "bfloat16"],
     ["--dimsem", "parallel"], ["--backend", "cpu-sim"],
 ])

@@ -13,6 +13,17 @@ what they run:
     pallas-dma    dma       csrc/membw.cu membw_dma (copy only)
     both          both      chunked + torch
 
+The stencil driver's arms follow the same rule (``overlap`` keeps its
+name: it names no Pallas kernel):
+
+    JAX           port
+    lax           torch     plain PyTorch on the ghost-padded block (mesh)
+    overlap       overlap   interior/boundary split in plain PyTorch (mesh)
+    pallas        block     csrc/jacobi_block.cu (mesh and one device)
+    pallas-stream stream    csrc/jacobi_stream.cu (mesh and one device)
+    --pack fused  fused     slice copies of the faces
+    --pack pallas kernel    csrc/pack.cu pack_faces_kernel (3D mesh)
+
 A JAX name is refused with an error that names the port's arm; there are
 no aliases.
 """
@@ -28,3 +39,11 @@ JAX_MEMBW_IMPLS = {
     "pallas-stream": "stream",
     "pallas-dma": "dma",
 }
+#: the JAX package's stencil arm name -> the port's
+JAX_STENCIL_IMPLS = {
+    "lax": "torch",
+    "pallas": "block",
+    "pallas-stream": "stream",
+}
+#: the JAX package's ``--pack`` name -> the port's
+JAX_STENCIL_PACKS = {"pallas": "kernel"}

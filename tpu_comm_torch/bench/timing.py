@@ -76,36 +76,48 @@ def sync(x):
     return x
 
 
-def time_fn(fn, warmup: int = 3, reps: int = 10) -> Timing:
+def time_fn(fn, warmup: int = 3, reps: int = 10, barrier=None) -> Timing:
     """Time ``fn()`` (returning a tensor), synchronised after each call.
-    ``warmup`` calls are untimed; all ``reps`` samples are kept."""
+    ``warmup`` calls are untimed; all ``reps`` samples are kept. On a
+    mesh, ``barrier`` (called before every clock read, after the
+    synchronise) lines the ranks up, so a rep times the slowest rank."""
     if reps < 1 or warmup < 0:
         raise ValueError(
             f"need reps >= 1 and warmup >= 0, got {reps=} {warmup=}"
         )
-    t0 = time.perf_counter()
+
+    def clock() -> float:
+        if barrier is not None:
+            barrier()
+        return time.perf_counter()
+
+    t0 = clock()
     for _ in range(warmup):
         sync(fn())
-    t = Timing(phases={"warmup_s": time.perf_counter() - t0})
-    t0 = time.perf_counter()
+    t = Timing(phases={"warmup_s": clock() - t0})
+    t0 = d1 = clock()
     for _ in range(reps):
-        d0 = time.perf_counter()
+        d0 = d1
         sync(fn())
-        t.times.append(time.perf_counter() - d0)
-    t.phases["timed_s"] = time.perf_counter() - t0
+        d1 = clock()
+        t.times.append(d1 - d0)
+    t.phases["timed_s"] = d1 - t0
     return t
 
 
 def time_loop_per_iter(
     run_iters, iters: int, warmup: int = 2, reps: int = 5, ratio: int = 3,
+    barrier=None,
 ) -> tuple[float, Timing, Timing]:
     """Per-iteration seconds of a loop, free of fixed overhead: the slope
     ``(t(ratio*iters) - t(iters)) / ((ratio-1)*iters)`` of the medians.
     Returns ``(secs_per_iter, timing_lo, timing_hi)``; ``timing_lo``'s
-    phases are the sum of both runs'."""
+    phases are the sum of both runs'. ``barrier`` as in :func:`time_fn`."""
     lo, hi = iters, ratio * iters
-    t_lo = time_fn(lambda: run_iters(lo), warmup=warmup, reps=reps)
-    t_hi = time_fn(lambda: run_iters(hi), warmup=warmup, reps=reps)
+    t_lo = time_fn(lambda: run_iters(lo), warmup=warmup, reps=reps,
+                   barrier=barrier)
+    t_hi = time_fn(lambda: run_iters(hi), warmup=warmup, reps=reps,
+                   barrier=barrier)
     per_iter = (t_hi.median - t_lo.median) / (hi - lo)
     t_lo.phases = {
         k: t_lo.phases.get(k, 0.0) + t_hi.phases.get(k, 0.0)

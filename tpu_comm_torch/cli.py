@@ -1,14 +1,16 @@
 """Command line of the port: ``python -m tpu_comm_torch <subcommand>``.
 
-- ``stencil`` — the single-device 1D/2D/3D Jacobi driver
-  (``bench/stencil.py``), with the JAX CLI's flag names for what it has.
+- ``stencil`` — the 1D/2D/3D Jacobi driver (``bench/stencil.py``), on one
+  device or with ``--mesh`` across a Cartesian mesh of ranks with
+  ghost-cell halo exchange; the JAX CLI's flag names for what it has, the
+  port's own arm names (``bench/__init__.py`` maps them).
 - ``membw``   — the STREAM bandwidth quartet (``bench/membw.py``), with the
   JAX CLI's flags; its arms carry the port's names (``bench/__init__.py``
   maps them).
 - ``info``    — torch and CUDA versions and the device a backend gives.
 
-Flags of the JAX CLI that the port does not have (``--mesh``,
-``--points``, ``--fuse-steps``, ``--halo-*``, ...) are not accepted;
+Flags of the JAX CLI that the port does not have (``--points``,
+``--fuse-steps``, ``--halo-*``, ``--t-steps``, ...) are not accepted;
 ``membw --dimsem`` is refused with its reason. Errors print
 ``error: ...`` and exit 2.
 """
@@ -30,15 +32,32 @@ def _add_backend_arg(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _parse_mesh(text: str) -> tuple[int, ...]:
+    try:
+        return tuple(int(part) for part in text.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mesh takes comma-separated integers (e.g. 2,2), got {text!r}"
+        ) from None
+
+
 def _cmd_stencil(args) -> int:
+    from tpu_comm_torch.bench import JAX_STENCIL_PACKS
     from tpu_comm_torch.bench.stencil import (
         DEFAULT_SIZES,
         StencilConfig,
+        run_distributed_bench,
         run_single_device,
     )
 
+    if args.pack in JAX_STENCIL_PACKS:
+        print(f"error: --pack {args.pack} is the JAX package's name; the "
+              f"port calls it {JAX_STENCIL_PACKS[args.pack]!r}",
+              file=sys.stderr)
+        return 2
+    run = run_single_device if args.mesh is None else run_distributed_bench
     try:
-        record = run_single_device(StencilConfig(
+        record = run(StencilConfig(
             dim=args.dim,
             size=args.size if args.size else DEFAULT_SIZES[args.dim],
             iters=args.iters,
@@ -46,6 +65,9 @@ def _cmd_stencil(args) -> int:
             bc=args.bc,
             impl=args.impl,
             chunk=args.chunk,
+            mesh=args.mesh,
+            pack=args.pack,
+            dist_timeout=args.dist_timeout,
             backend=args.backend,
             verify=args.verify,
             verify_iters=args.verify_iters,
@@ -57,10 +79,12 @@ def _cmd_stencil(args) -> int:
             load=args.load,
             dump=args.dump,
         ))
-    except (ValueError, RuntimeError, OSError) as e:
+    except (ValueError, RuntimeError, OSError, TimeoutError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    print(json.dumps(record, sort_keys=True))
+    # under a launcher every rank runs this; rank 0 alone has the row
+    if record is not None:
+        print(json.dumps(record, sort_keys=True))
     return 0
 
 
@@ -131,10 +155,33 @@ def build_parser() -> argparse.ArgumentParser:
     p_info.set_defaults(func=_cmd_info)
 
     p_st = sub.add_parser(
-        "stencil", help="Jacobi stencil benchmark (1D/2D/3D, one device)"
+        "stencil",
+        help="Jacobi stencil benchmark (1D/2D/3D), on one device or "
+        "across a rank mesh with halo exchange",
     )
     _add_backend_arg(p_st)
     p_st.add_argument("--dim", type=int, choices=[1, 2, 3], default=1)
+    p_st.add_argument(
+        "--mesh", type=_parse_mesh, default=None, metavar="P[,Q[,R]]",
+        help="ranks per axis of a Cartesian mesh (as many axes as --dim), "
+        "one process each: the grid is decomposed over it and every step "
+        "exchanges ghost cells. Without RANK/WORLD_SIZE in the environment "
+        "the command starts its own ranks (none for a mesh of 1); under "
+        "torchrun it joins the group it is given. The card needs one GPU "
+        "per rank",
+    )
+    p_st.add_argument(
+        "--pack", default="fused",
+        help="ghost pack of a 3D mesh run with --impl overlap, block or "
+        "stream: 'fused' (slice copies, default) or 'kernel' (the "
+        "hand-written face-pack kernel; JAX 'pallas')",
+    )
+    p_st.add_argument(
+        "--dist-timeout", type=float, default=600.0, metavar="SECONDS",
+        help="limit for a collective, the rendezvous and the whole run of "
+        "the ranks a mesh run starts; when one rank fails the rest are "
+        "killed and the command exits non-zero",
+    )
     p_st.add_argument(
         "--size", type=int, default=None,
         help="global points per dimension (default: 2^20 for 1D, 4096 for "
@@ -166,9 +213,14 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p_st.add_argument(
         "--impl", default="auto",
-        help="local update: 'auto' (default) or 'stream' (the hand-written "
-        "CUDA kernel; its plain PyTorch version on the CPU). The JAX "
-        "package's other arms are not yet ported (see ROADMAP.md)",
+        help="local update. One device: 'stream' (the chunked CUDA kernel; "
+        "JAX 'pallas-stream'; what 'auto' picks) or 'block' (the "
+        "whole-field CUDA kernel; JAX 'pallas'). With --mesh also 'torch' "
+        "(plain PyTorch on the ghost-padded block; JAX 'lax') and "
+        "'overlap' (interior/boundary split in plain PyTorch; what 'auto' "
+        "picks there). On the CPU a kernel arm runs its plain PyTorch "
+        "version. The JAX package's other arms are not yet ported (see "
+        "ROADMAP.md)",
     )
     p_st.add_argument(
         "--verify", action="store_true",

@@ -1,7 +1,8 @@
 """2D 5-point Jacobi step: plain PyTorch version + hand-written CUDA kernel.
 
 Port of ``tpu_comm/kernels/jacobi2d.py``'s ``pallas-stream`` arm
-(``step_pallas_stream`` and its kernel ``_jacobi2d_stream_kernel``).
+(``step_pallas_stream`` and its kernel ``_jacobi2d_stream_kernel``) and
+``pallas`` arm (``step_pallas`` and its kernel ``_jacobi2d_kernel``).
 
 Update rule: u'[i,j] = ((u[i-1,j] + u[i+1,j]) + (u[i,j-1] + u[i,j+1])) / 4
 Boundary: ``dirichlet`` freezes the one-cell ring; ``periodic`` wraps.
@@ -11,6 +12,10 @@ Boundary: ``dirichlet`` freezes the one-cell ring; ``periodic`` wraps.
 - ``step_stream`` — the wrapper of ``jacobi2d_kernel`` in
   ``csrc/jacobi_stream.cu``: a CUDA tensor goes to the kernel, a CPU
   tensor to ``step_plain``.
+- ``step_block``  — the wrapper of ``jacobi2d_block_kernel`` in
+  ``csrc/jacobi_block.cu``, the port of the TPU's whole-field kernel:
+  the same function by another design (see the source). It is the
+  distributed step's ``block`` local update and a single-device arm.
 """
 
 from __future__ import annotations
@@ -72,7 +77,25 @@ def step_stream(u: torch.Tensor, bc: str = "dirichlet",
 
 step_stream.launches = 0
 
-STEPS = {"stream": step_stream}
+
+def step_block(u: torch.Tensor, bc: str = "dirichlet",
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 2D step by the whole-field kernel: the CUDA kernel for a CUDA
+    tensor, ``step_plain`` for a CPU tensor. Writes into ``out`` (which
+    must not alias ``u``) when given. ``step_block.launches`` counts
+    kernel launches."""
+    check_bc(bc)
+    if u.device.type == "cpu":
+        return step_plain(u, bc, out)
+    out = check_kernel_args(u, 2, out)
+    launch_stencil("tc_jacobi2d_block", u, out, bc)
+    step_block.launches += 1
+    return out
+
+
+step_block.launches = 0
+
+STEPS = {"stream": step_stream, "block": step_block}
 IMPLS = tuple(STEPS)
 
 

@@ -54,12 +54,14 @@ def narrow_store(
 
 
 def check_kernel_args(
-    u: torch.Tensor, ndim: int, out: torch.Tensor | None
+    u: torch.Tensor, ndim: int, out: torch.Tensor | None,
+    min_extents: tuple[int, ...] | None = None,
 ) -> torch.Tensor:
     """Validate a CUDA kernel's input; return ``out`` (allocated with
     ``torch.empty_like`` when None). Raises on what the kernels do not
     take: another device, dtype, rank, a non-contiguous tensor, an extent
-    below 3, or an output that aliases the input or differs in form."""
+    below its minimum (3 unless ``min_extents`` says otherwise), or an
+    output that aliases the input or differs in form."""
     if u.device.type != "cuda":
         raise ValueError(f"CUDA kernel needs a CUDA tensor, got {u.device}")
     if u.dtype not in KERNEL_DTYPE_CODES:
@@ -70,8 +72,12 @@ def check_kernel_args(
         raise ValueError(
             f"expected a {ndim}-D field, got shape {tuple(u.shape)}"
         )
-    if min(u.shape) < 3:
-        raise ValueError(f"every extent must be >= 3, got {tuple(u.shape)}")
+    if min_extents is None:
+        min_extents = (3,) * ndim
+    if any(s < m for s, m in zip(u.shape, min_extents)):
+        raise ValueError(
+            f"the extents must be >= {min_extents}, got {tuple(u.shape)}"
+        )
     if not u.is_contiguous():
         raise ValueError("CUDA kernel needs a contiguous field")
     if out is None:
@@ -178,16 +184,18 @@ def launch_kernel(symbol: str, t: torch.Tensor, *args) -> None:
 
 
 def launch_stencil(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
-                   chunk: int) -> None:
+                   chunk: int | None = None) -> None:
     """Launch a stencil kernel of ``csrc/`` on ``u``'s device and current
     stream. Every launcher takes ``(u, out, *extents, dtype code,
-    periodic, chunk, stream)``; validate ``u`` and ``out`` with
+    periodic[, chunk], stream)``: the stream kernels take a chunk, the
+    block kernels none. Validate ``u`` and ``out`` with
     :func:`check_kernel_args` first."""
-    if chunk < 1:
+    if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     launch_kernel(
         symbol, u, u.data_ptr(), out.data_ptr(), *u.shape,
-        KERNEL_DTYPE_CODES[u.dtype], int(bc == "periodic"), chunk,
+        KERNEL_DTYPE_CODES[u.dtype], int(bc == "periodic"),
+        *(() if chunk is None else (chunk,)),
     )
 
 
