@@ -11,9 +11,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``build/torch_ext/`` (one ``nvcc`` per source, all at once; timed);
 3. every kernel against its plain PyTorch version on the card, required
    bitwise equal (``torch.equal``):
-   - stencils, the stream and the block kernels: kernel x {float32,
-     bfloat16, float16} x {dirichlet, periodic}, 20 steps at full size,
-     plus ragged shapes and (stream) a non-default chunk;
+   - stencils, the stream and the block kernels of the star (1D, 2D, 3D)
+     and of the box stencils (2D 9-point, 3D 27-point): kernel x
+     {float32, bfloat16, float16} x {dirichlet, periodic}, 20 steps at
+     full size, plus ragged shapes and (stream) a non-default chunk;
    - the face pack: the four packed faces x every dtype at 512^3 and at
      ragged shapes;
    - membw: every op a kernel serves x every dtype x aliased on/off x the
@@ -23,28 +24,35 @@ Phases, each printing JSON lines; any failure exits non-zero:
      its neighbour loads (``cuobjdump``);
 4. the main path, in process through ``cli.main``, each run with every
    kernel's launch count set to 0 just before and read just after:
-   ``stencil --impl auto --verify`` for dims 1, 2 and 3 at full size,
-   ``membw --op OP --impl ARM`` for every (op, arm) pair the JAX CLI
-   accepts, and the mesh runs ``stencil --mesh 1[,1[,1]]`` (world size 1,
-   the NCCL group created; a periodic axis exchanges with its own rank
-   through NCCL) for the block arm in 1D, 2D and 3D and the stream,
-   overlap and auto arms in 3D, the 3D ones with ``--pack kernel``, each
-   dirichlet and periodic, plus one ``--tol`` run whose residual goes
-   through ``all_reduce``; each row must say ``platform: cuda`` and
-   ``verified: true``, the run's kernels must have launched and no other;
+   ``stencil --impl auto --verify`` for dims 1, 2 and 3 at full size, the
+   box stencils ``stencil --points 9 --dim 2`` and ``--points 27 --dim 3``
+   with ``--impl auto`` and ``--impl block``, ``membw --op OP --impl
+   ARM`` for every (op, arm) pair the JAX CLI accepts, and the mesh runs
+   ``stencil --mesh 1[,1[,1]]`` (world size 1, the NCCL group created; a
+   periodic axis exchanges with its own rank through NCCL) for the block
+   arm in 1D, 2D and 3D and the stream, overlap and auto arms in 3D, the
+   3D ones with ``--pack kernel``, and for the box stencils (the chained
+   exchange, one NCCL batch per axis) the block, stream and overlap arms
+   of ``--points 9`` and the block and stream arms of ``--points 27``,
+   each dirichlet and periodic, plus one star and one ``--points 9``
+   ``--tol`` run whose residual goes through ``all_reduce``; each row
+   must say ``platform: cuda`` and ``verified: true``, the run's kernels
+   must have launched and no other;
 5. times at the full float32 sizes (CUDA events): kernel, plain version,
    one library call computing the same function (a yardstick the port
    never calls), and for each stencil a device-to-device ``copy_`` and the
-   port's own chunked copy kernel at the same bytes; and per 3D mesh arm
-   the whole distributed step (exchange, kernel, face recompute, freeze)
-   beside its kernel alone;
+   port's own chunked copy kernel at the same bytes; and per mesh arm of
+   the 3D star and of both box stencils the whole distributed step
+   (exchange, kernel, face recompute, freeze) beside its kernel alone and
+   its exchange alone;
 6. the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
-Full sizes: stencils 1D 2^26 points, 2D 8192^2, 3D 512^3; membw 2^26
-elements. In float32 that is 256/256/512 MiB per buffer, far above the
-50 MB L2, so the kernels stream DRAM. Inputs are made on the card from
-fixed seeds.
+Full sizes: stencils 1D 2^26 points, 2D 8192^2, 3D 512^3 (the box
+stencils too); membw 2^26 elements. In float32 that is 256/256/512 MiB
+per buffer, far above the 50 MB L2, so the kernels stream DRAM; the mesh
+runs of phase 4 are at the same global sizes. Inputs are made on the card
+from fixed seeds.
 """
 
 from __future__ import annotations
@@ -64,32 +72,50 @@ VERIFY_ITERS = 4
 PEAK_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12
-#: per output element: the adds and the one multiply of the update
-OPS_PER_POINT = {1: 2, 2: 4, 3: 6}
-#: stencil arm -> dim -> (kernel, the TPU kernel body it replaces)
+#: a stencil's key: the star's dim (1, 2, 3) or the box's ``--points``
+#: (9, 27) -> the field's dim
+DIM = {1: 1, 2: 2, 3: 3, 9: 2, 27: 3}
+BOX = (9, 27)
+#: per output element: the adds and the one multiply of the update (the
+#: golden's: one add fewer than the neighbours, then the multiply)
+OPS_PER_POINT = {1: 2, 2: 4, 3: 6, 9: 8, 27: 26}
+#: stencil arm -> key -> (kernel, the TPU kernel body it replaces)
 KERNELS = {
     "stream": {
         1: ("jacobi1d_stream", "tpu_comm/kernels/jacobi1d.py:318"),
         2: ("jacobi2d_stream", "tpu_comm/kernels/jacobi2d.py:293"),
         3: ("jacobi3d_stream", "tpu_comm/kernels/jacobi3d.py:153"),
+        9: ("stencil9_stream", "tpu_comm/kernels/stencil9.py:112"),
+        27: ("stencil27_stream", "tpu_comm/kernels/stencil27.py:168"),
     },
     "block": {
         1: ("jacobi1d_block", "tpu_comm/kernels/jacobi1d.py:139"),
         2: ("jacobi2d_block", "tpu_comm/kernels/jacobi2d.py:147"),
         3: ("jacobi3d_block", "tpu_comm/kernels/jacobi3d.py:108"),
+        9: ("stencil9_block", "tpu_comm/kernels/stencil9.py:79"),
+        27: ("stencil27_block", "tpu_comm/kernels/stencil27.py:105"),
     },
 }
 SOURCES = {"stream": "tpu_comm_torch/csrc/jacobi_stream.cu",
            "block": "tpu_comm_torch/csrc/jacobi_block.cu"}
+BOX_SOURCE = "tpu_comm_torch/csrc/box.cu"
+#: the single-device runs of phase 4: (key, --impl)
+MAIN_RUNS = [(1, "auto"), (2, "auto"), (3, "auto"), (9, "auto"),
+             (9, "block"), (27, "auto"), (27, "block")]
 PACK_KERNEL = ("pack_faces", "tpu_comm/kernels/pack.py:48")
 PACK_SOURCE = "tpu_comm_torch/csrc/pack.cu"
 PACK_RAGGED = [(1, 1, 1), (3, 5, 7), (19, 23, 45), (130, 9, 33)]
 #: DRAM sector: what one x-face element costs to read (one per row of nx)
 SECTOR_BYTES = 32
-#: the mesh runs of phase 4: (dim, --impl, --pack), each in both bc
+#: the mesh runs of phase 4: (key, --impl, --pack), each in both bc
 MESH_RUNS = [(1, "block", "fused"), (2, "block", "fused"),
              (3, "block", "kernel"), (3, "stream", "kernel"),
-             (3, "overlap", "kernel"), (3, "auto", "fused")]
+             (3, "overlap", "kernel"), (3, "auto", "fused"),
+             (9, "block", "fused"), (9, "stream", "fused"),
+             (9, "overlap", "fused"), (27, "block", "fused"),
+             (27, "stream", "fused")]
+#: the --tol mesh runs: (key, --impl)
+MESH_TOL_RUNS = [(2, "block"), (9, "block")]
 #: loop lengths of a mesh run (the eager face work makes a step long)
 MESH_ITERS = 20
 RAGGED = {
@@ -97,6 +123,9 @@ RAGGED = {
     2: [(3, 3), (37, 301), (1001, 37)],
     3: [(3, 3, 3), (19, 23, 45), (130, 9, 33)],
 }
+#: the least depth of the 3D kernels that take 2 planes (the 7-point
+#: stream needs 3)
+LEAST_DEPTH = {"block": (3, 27), "stream": (27,)}
 #: a non-default chunk per dim (rows / rows / planes), results must not move
 ODD_CHUNK = {1: 1, 2: 5, 3: 3}
 MEMBW_N = 1 << 26
@@ -182,17 +211,18 @@ def queued_ms(torch, fn, reps: int, filler) -> tuple[float, bool]:
 
 
 def check_kernels(torch, mods, arm: str) -> dict:
-    """Phase 3: the ``arm`` kernel of each dim vs the plain version,
-    bitwise; returns the max abs error per dim (0.0 when every case was
-    equal)."""
+    """Phase 3: the ``arm`` kernel of each stencil vs the plain version,
+    bitwise; returns the max abs error per stencil key (0.0 when every
+    case was equal)."""
     from tpu_comm_torch.kernels import run_steps
 
     errs = {}
-    for dim, mod in mods.items():
-        name = KERNELS[arm][dim][0]
+    for key, mod in mods.items():
+        dim = DIM[key]
+        name = KERNELS[arm][key][0]
         cases = [(SIZES[dim],) * dim] + RAGGED[dim]
-        if arm == "block" and dim == 3:
-            cases = cases + [(2, 3, 3)]  # the plane kernel's least depth
+        if key in LEAST_DEPTH[arm]:
+            cases = cases + [(2, 3, 3)]
         worst = 0.0
         for shape in cases:
             for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -208,13 +238,13 @@ def check_kernels(torch, mods, arm: str) -> dict:
                              f"kernel != plain (max abs err {err})")
                     if (arm == "stream" and shape == cases[0]
                             and bc == "periodic"):
-                        key = "planes_per_chunk" if dim == 3 else \
+                        knob = "planes_per_chunk" if dim == 3 else \
                             "rows_per_chunk"
-                        odd = mod.run(u, 2, bc=bc, **{key: ODD_CHUNK[dim]})
+                        odd = mod.run(u, 2, bc=bc, **{knob: ODD_CHUNK[dim]})
                         if not torch.equal(odd, mod.run(u, 2, bc=bc)):
                             fail(f"{name}: result depends on the chunk")
                     del u, got, want
-        errs[dim] = worst
+        errs[key] = worst
         emit({"check": {"kernel": name, "shapes": cases,
                         "steps": CHECK_STEPS, "max_abs_err": worst,
                         "tolerance": "bitwise (torch.equal)",
@@ -248,39 +278,55 @@ def check_pack(torch) -> float:
     return worst
 
 
-def drive_main_path(torch, mods, counters) -> dict:
-    """Phase 4: the driver at full size per dim; returns the dim's
-    kernel launches in its run."""
+def _stencil_argv(key: int) -> list:
+    """``--dim`` (and ``--points`` for a box stencil) of a stencil key."""
+    argv = ["--dim", str(DIM[key])]
+    return argv + ["--points", str(key)] if key in BOX else argv
+
+
+def _workload(key: int) -> str:
+    from tpu_comm_torch.kernels import stencil_name
+
+    return f"stencil{DIM[key]}d" + (f"-{stencil_name(key)}" if key in BOX
+                                    else "")
+
+
+def drive_main_path(torch, counters) -> dict:
+    """Phase 4: the single-device driver at full size per (stencil,
+    arm) of MAIN_RUNS; returns each kernel's launches summed over the
+    runs."""
     from tpu_comm_torch import cli
 
-    launches = {}
+    launches = {name: 0 for name in counters}
     with tempfile.TemporaryDirectory() as tmp:
-        for dim in mods:
-            path = Path(tmp) / f"stencil{dim}d.jsonl"
+        for key, impl in MAIN_RUNS:
+            path = Path(tmp) / f"stencil{key}-{impl}.jsonl"
             for w in counters.values():
                 w.launches = 0
-            rc = cli.main([
-                "stencil", "--dim", str(dim), "--size", str(SIZES[dim]),
-                "--impl", "auto", "--verify",
-                "--verify-iters", str(VERIFY_ITERS), "--jsonl", str(path),
-            ])
+            argv = ["stencil", *_stencil_argv(key), "--size",
+                    str(SIZES[DIM[key]]), "--impl", impl, "--verify",
+                    "--verify-iters", str(VERIFY_ITERS), "--jsonl",
+                    str(path)]
+            rc = cli.main(argv)
             counts = {k: w.launches for k, w in counters.items()}
-            name = KERNELS["stream"][dim][0]
+            what = " ".join(argv[1:-2])
+            arm = "stream" if impl == "auto" else impl
+            name = KERNELS[arm][key][0]
             if rc != 0:
-                fail(f"stencil --dim {dim} exited {rc}")
+                fail(f"{what} exited {rc}")
             row = json.loads(path.read_text().splitlines()[-1])
-            platform, verified = row.get("platform"), row.get("verified")
-            if platform != "cuda" or verified is not True:
-                fail(f"stencil --dim {dim}: row says platform={platform} "
-                     f"verified={verified}")
-            if row.get("impl") != "stream":
-                fail(f"stencil --dim {dim}: auto gave {row.get('impl')}")
+            want = {"platform": "cuda", "verified": True, "impl": arm,
+                    "workload": _workload(key)}
+            got = {k: row.get(k) for k in want}
+            if got != want:
+                fail(f"{what}: row says {got}, expected {want}")
             if counts[name] == 0:
                 fail(f"{name} was not launched on the main path")
             if any(c for k, c in counts.items() if k != name):
-                fail(f"stencil --dim {dim} launched other kernels: {counts}")
-            launches[dim] = counts[name]
-            emit({"main_path": {"dim": dim, "launches": counts[name],
+                fail(f"{what} launched other kernels: {counts}")
+            launches[name] += counts[name]
+            emit({"main_path": {"stencil": _workload(key), "impl": arm,
+                                "launches": counts[name],
                                 "gbps_eff": row["gbps_eff"],
                                 "secs_per_iter": row["secs_per_iter"],
                                 "elapsed_s": time.perf_counter() - T0}})
@@ -289,23 +335,27 @@ def drive_main_path(torch, mods, counters) -> dict:
 
 def drive_mesh(torch, counters) -> dict:
     """Phase 4, the distributed stencil at world size 1: ``stencil --mesh
-    1[,1[,1]]`` per (dim, arm, pack) and bc, and one ``--tol`` run; returns
-    each kernel's launches summed over the runs."""
+    1[,1[,1]]`` per (stencil, arm, pack) of MESH_RUNS and bc, and the
+    ``--tol`` runs; returns each kernel's launches summed over the
+    runs."""
     from tpu_comm_torch import cli
 
     launches = {name: 0 for name in counters}
-    runs = [(dim, impl, pack, bc, []) for dim, impl, pack in MESH_RUNS
+    runs = [(key, impl, pack, bc, []) for key, impl, pack in MESH_RUNS
             for bc in ("dirichlet", "periodic")]
-    runs.append((2, "block", "fused", "dirichlet",
-                 ["--tol", "1e-3", "--check-every", "4"]))
+    runs += [(key, impl, "fused", "dirichlet",
+              ["--tol", "1e-3", "--check-every", "4"])
+             for key, impl in MESH_TOL_RUNS]
     with tempfile.TemporaryDirectory() as tmp:
-        for n, (dim, impl, pack, bc, extra) in enumerate(runs):
+        for n, (key, impl, pack, bc, extra) in enumerate(runs):
+            dim = DIM[key]
             path = Path(tmp) / f"mesh{n}.jsonl"
             for w in counters.values():
                 w.launches = 0
-            argv = ["stencil", "--mesh", ",".join(["1"] * dim), "--dim",
-                    str(dim), "--size", str(SIZES[dim]), "--impl", impl,
-                    "--pack", pack, "--bc", bc, "--verify",
+            argv = ["stencil", "--mesh", ",".join(["1"] * dim),
+                    *_stencil_argv(key), "--size",
+                    str(SIZES[dim]),
+                    "--impl", impl, "--pack", pack, "--bc", bc, "--verify",
                     "--verify-iters", str(VERIFY_ITERS), "--iters",
                     str(8 if extra else MESH_ITERS), "--warmup", "2",
                     "--reps", "5", "--jsonl", str(path), *extra]
@@ -318,14 +368,14 @@ def drive_mesh(torch, counters) -> dict:
             arm = "overlap" if impl == "auto" else impl
             want = {"platform": "cuda", "verified": True, "impl": arm,
                     "pack": pack, "mesh": [1] * dim, "topo_plan": None,
-                    "workload": f"stencil{dim}d-dist"
+                    "workload": f"{_workload(key)}-dist"
                     + ("-conv" if extra else "")}
             got = {k: row.get(k) for k in want}
             if got != want:
                 fail(f"{what}: row says {got}, expected {want}")
             expected = set()
             if arm in KERNELS:
-                expected.add(KERNELS[arm][dim][0])
+                expected.add(KERNELS[arm][key][0])
             if pack == "kernel":
                 expected.add(PACK_KERNEL[0])
             launched = {k for k, c in counts.items() if c}
@@ -335,7 +385,8 @@ def drive_mesh(torch, counters) -> dict:
             for k in expected:
                 launches[k] += counts[k]
             emit({"main_path": {
-                "mesh": [1] * dim, "impl": arm, "pack": pack, "bc": bc,
+                "mesh": [1] * dim, "stencil": _workload(key), "impl": arm,
+                "pack": pack, "bc": bc,
                 "tol": bool(extra),
                 "launches": {k: counts[k] for k in sorted(expected)},
                 "gbps_eff": row["gbps_eff"], "iters": row["iters"],
@@ -344,18 +395,24 @@ def drive_mesh(torch, counters) -> dict:
     return launches
 
 
-def library_call(torch, dim: int):
+def library_call(torch, key: int):
     """One PyTorch call computing the periodic stencil: a circular-padded
-    convolution with the stencil's weights."""
+    convolution with the stencil's weights (the box: every cell of the
+    3^d cube but the centre)."""
+    dim = DIM[key]
     conv = {1: torch.nn.Conv1d, 2: torch.nn.Conv2d, 3: torch.nn.Conv3d}[dim](
         1, 1, 3, padding=1, padding_mode="circular", bias=False,
     ).cuda()
     w = torch.zeros((1, 1) + (3,) * dim, device="cuda")
-    for axis in range(dim):
-        for side in (0, 2):
-            idx = [0, 0] + [1] * dim
-            idx[2 + axis] = side
-            w[tuple(idx)] = 1.0 / (2 * dim)
+    if key in BOX:
+        w.fill_(1.0 / (3 ** dim - 1))
+        w[(0, 0) + (1,) * dim] = 0.0
+    else:
+        for axis in range(dim):
+            for side in (0, 2):
+                idx = [0, 0] + [1] * dim
+                idx[2 + axis] = side
+                w[tuple(idx)] = 1.0 / (2 * dim)
     with torch.no_grad():
         conv.weight.copy_(w)
     return conv
@@ -369,9 +426,10 @@ def measure_times(torch, mods, arm: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    for dim, mod in mods.items():
+    for key, mod in mods.items():
+        dim = DIM[key]
         shape = (SIZES[dim],) * dim
-        u = random_field(torch, shape, torch.float32, seed=10 + dim)
+        u = random_field(torch, shape, torch.float32, seed=10 + key)
         dst = torch.empty_like(u)
         n = u.numel()
         step = mod.STEPS[arm]
@@ -384,7 +442,7 @@ def measure_times(torch, mods, arm: str) -> dict:
         chunked_copy_ms = time_ms(
             torch, lambda: membw.step_chunked(flat_u, None, 1.0, "copy",
                                               out=flat_dst), 50)
-        conv = library_call(torch, dim)
+        conv = library_call(torch, key)
         x = u.reshape((1, 1) + shape)
         with torch.no_grad():
             library_ms = time_ms(torch, lambda: conv(x), 10)
@@ -393,11 +451,11 @@ def measure_times(torch, mods, arm: str) -> dict:
                 .abs().max()
             )
         nbytes = 2 * n * u.element_size()
-        ops = OPS_PER_POINT[dim] * n
+        ops = OPS_PER_POINT[key] * n
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
-        out[dim] = {
-            "kernel": KERNELS[arm][dim][0], "shape": list(shape),
+        out[key] = {
+            "kernel": KERNELS[arm][key][0], "shape": list(shape),
             "dtype": "float32", "bc": "dirichlet",
             "kernel_ms": kernel_ms, "kernel_periodic_ms": periodic_ms,
             "plain_ms": plain_ms,
@@ -414,7 +472,7 @@ def measure_times(torch, mods, arm: str) -> dict:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         }
-        emit({"times": {**out[dim], "elapsed_s": time.perf_counter() - T0}})
+        emit({"times": {**out[key], "elapsed_s": time.perf_counter() - T0}})
         del u, dst, x, conv, flat_u, flat_dst
         torch.cuda.empty_cache()
     return out
@@ -471,49 +529,65 @@ def measure_pack(torch) -> dict:
     return out
 
 
+#: the distributed steps phase 5 times: (key, arm, --pack)
+DIST_STEPS = [(3, "block", "kernel"), (3, "block", "fused"),
+              (3, "stream", "kernel"), (3, "overlap", "kernel"),
+              (3, "torch", "fused"), (9, "block", "fused"),
+              (9, "stream", "fused"), (9, "overlap", "fused"),
+              (27, "block", "fused"), (27, "stream", "fused"),
+              (27, "overlap", "fused")]
+
+
 def measure_dist_steps(torch, mods) -> list:
-    """Phase 5, the whole distributed step at 512^3 float32 on a mesh of
-    one (exchange through NCCL, update, face recompute, freeze) beside
-    its update kernel alone and its exchange alone, per arm and bc."""
+    """Phase 5, the whole distributed step at full float32 size on a mesh
+    of one (exchange through NCCL, update, face recompute, freeze) beside
+    its update kernel alone and its exchange alone, per (stencil, arm,
+    pack) of DIST_STEPS and bc."""
     from tpu_comm_torch.comm import halo, launch
+    from tpu_comm_torch.kernels import stencil_name
     from tpu_comm_torch.kernels.distributed import make_local_step
     from tpu_comm_torch.topo import make_cart_mesh
 
-    shape = (SIZES[3],) * 3
-    u = random_field(torch, shape, torch.float32, seed=42)
-    dst = torch.empty_like(u)
     rows = []
     with launch.process_group("nccl"):
-        for impl, pack in (("block", "kernel"), ("block", "fused"),
-                           ("stream", "kernel"), ("overlap", "kernel"),
-                           ("torch", "fused")):
+        for key, impl, pack in DIST_STEPS:
+            dim = DIM[key]
+            shape = (SIZES[dim],) * dim
+            u = random_field(torch, shape, torch.float32, seed=42)
+            dst = torch.empty_like(u)
+            points = key if key in BOX else 0
             for bc in ("dirichlet", "periodic"):
-                cart = make_cart_mesh(3, periodic=bc == "periodic")
-                step = make_local_step(cart, bc, impl, pack=pack)
+                cart = make_cart_mesh(dim, periodic=bc == "periodic")
+                step = make_local_step(cart, bc, impl, pack=pack,
+                                       stencil=stencil_name(points))
                 dist_step_ms = time_ms(torch, lambda: step(u, out=dst), 20)
                 # the exchange alone: pack, post, wait (the torch arm's
                 # chained pad_halo has no such part)
                 exchange_ms = None
                 if impl != "torch":
-                    start = (halo.start_exchange_ghosts_3d_packed
-                             if pack == "kernel"
-                             else halo.start_exchange_ghosts)
+                    if points:
+                        start = halo.start_exchange_transitive
+                    elif pack == "kernel":
+                        start = halo.start_exchange_ghosts_3d_packed
+                    else:
+                        start = halo.start_exchange_ghosts
                     exchange_ms = time_ms(
                         torch, lambda: start(u, cart).wait(), 20)
                 kernel_ms = None
                 if impl in KERNELS:
-                    kernel = mods[3].STEPS[impl]
+                    kernel = mods[key].STEPS[impl]
                     kernel_ms = time_ms(
                         torch, lambda: kernel(u, "periodic", out=dst), 20)
-                rows.append({"impl": impl, "pack": pack, "bc": bc,
-                             "shape": list(shape), "dtype": "float32",
+                rows.append({"stencil": _workload(key), "impl": impl,
+                             "pack": pack, "bc": bc, "shape": list(shape),
+                             "dtype": "float32",
                              "dist_step_ms": dist_step_ms,
                              "kernel_ms": kernel_ms,
                              "exchange_ms": exchange_ms})
                 emit({"dist_step": {**rows[-1],
                                     "elapsed_s": time.perf_counter() - T0}})
-    del u, dst
-    torch.cuda.empty_cache()
+            del u, dst
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -729,7 +803,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from tpu_comm_torch.bench.timing import nvidia_smi_line
-    from tpu_comm_torch.kernels import _build, membw, pack, stencil_module
+    from tpu_comm_torch.kernels import _build, kernels_for, membw, pack
 
     smi = nvidia_smi_line()
     if smi is None:
@@ -747,10 +821,11 @@ def main() -> int:
                     "libraries": sorted(libs),
                     "build_dir": str(_build.BUILD_DIR.relative_to(ROOT))}})
 
-    mods = {dim: stencil_module(dim) for dim in (1, 2, 3)}
+    mods = {key: kernels_for(DIM[key], key if key in BOX else 0)
+            for key in DIM}
     counters = {
-        KERNELS[arm][dim][0]: mods[dim].STEPS[arm]
-        for arm in KERNELS for dim in mods
+        KERNELS[arm][key][0]: mods[key].STEPS[arm]
+        for arm in KERNELS for key in mods
     }
     counters[PACK_KERNEL[0]] = pack.pack_faces
     counters.update({f"membw.{w.__name__}": w for w in membw.WRAPPERS})
@@ -758,7 +833,7 @@ def main() -> int:
     pack_err = check_pack(torch)
     membw_errs = check_membw(torch)
     check_stream_loads(libs)
-    launches = drive_main_path(torch, mods, counters)
+    launches = drive_main_path(torch, counters)
     membw_launches = drive_membw(torch, counters)
     mesh_launches = drive_mesh(torch, counters)
     times = {arm: measure_times(torch, mods, arm) for arm in KERNELS}
@@ -769,17 +844,16 @@ def main() -> int:
     print(smi, flush=True)
     stencil_rows = []
     for arm in KERNELS:
-        for dim in (1, 2, 3):
-            name, replaces = KERNELS[arm][dim]
-            t = times[arm][dim]
+        for key in DIM:
+            name, replaces = KERNELS[arm][key]
+            t = times[arm][key]
             stencil_rows.append({
-                "name": name, "route": "cuda", "source": SOURCES[arm],
+                "name": name, "route": "cuda",
+                "source": BOX_SOURCE if key in BOX else SOURCES[arm],
                 "replaces": replaces,
-                # the stream kernels: the single-device run plus the mesh
-                # runs that use them; the block kernels: their mesh runs
-                "launches": mesh_launches[name]
-                + (launches[dim] if arm == "stream" else 0),
-                "max_abs_err": errs[arm][dim], "ms": t["kernel_ms"],
+                # the single-device runs plus the mesh runs that use it
+                "launches": mesh_launches[name] + launches[name],
+                "max_abs_err": errs[arm][key], "ms": t["kernel_ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "copy_ms": t["copy_ms"],

@@ -258,3 +258,85 @@ def test_mesh_of_one_on_the_card_through_nccl(card, bc, impl, pack):
         pack=pack, mesh=(1, 1, 1), verify=True, warmup=1, reps=1,
     ))
     assert tol["workload"] == "stencil3d-dist-conv" and tol["verified"]
+
+
+BOX_SHAPES = {
+    9: [(3, 3), (37, 301), (1001, 37), (64, 256)],
+    27: [(3, 3, 3), (19, 23, 45), (130, 9, 33), (4, 8, 128)],
+}
+BOX_CHUNK_KEY = {9: "rows_per_chunk", 27: "planes_per_chunk"}
+
+
+def _box(points):
+    from tpu_comm_torch.kernels import stencil9, stencil27
+
+    return {9: stencil9, 27: stencil27}[points]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("points", [9, 27])
+def test_box_kernels_bitwise_equal_plain_version(card, points, bc, dtype):
+    mod = _box(points)
+    shapes = BOX_SHAPES[points] + ([(2, 3, 3)] if points == 27 else [])
+    for shape in shapes:
+        u = _field(shape, dtype, seed=len(shape))
+        want = run_steps(mod.step_plain, u, 5, bc)
+        for impl in ("stream", "block"):
+            got = mod.run(u, 5, bc=bc, impl=impl)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.equal(got, want), (shape,
+                                                                   impl)
+
+
+@pytest.mark.parametrize("points", [9, 27])
+def test_box_stream_chunk_sets_the_grid_not_the_result(card, points):
+    mod = _box(points)
+    u = _field(BOX_SHAPES[points][1], torch.float32)
+    ref = mod.step_stream(u, bc="periodic")
+    for chunk in (1, 2, 3, 7, 1000):
+        got = mod.step_stream(u, bc="periodic",
+                              **{BOX_CHUNK_KEY[points]: chunk})
+        assert torch.equal(got, ref), chunk
+
+
+@pytest.mark.parametrize("arm", ["step_stream", "step_block"])
+@pytest.mark.parametrize("points", [9, 27])
+def test_box_wrappers_count_launches_and_refuse_aliasing(card, points, arm):
+    wrapper = getattr(_box(points), arm)
+    u = _field(BOX_SHAPES[points][1], torch.float32)
+    before = wrapper.launches
+    out = torch.empty_like(u)
+    assert wrapper(u, out=out) is out
+    assert wrapper.launches == before + 1
+    with pytest.raises(ValueError, match="alias"):
+        wrapper(u, out=u)
+    with pytest.raises(ValueError, match="takes"):
+        wrapper(u.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(u.transpose(0, 1))
+    assert wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize("impl", ["torch", "overlap", "block", "stream"])
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("points", [9, 27])
+def test_box_mesh_of_one_on_the_card_through_nccl(card, points, bc, impl):
+    """The box stencils at world size 1: each axis of the chained exchange
+    is its own NCCL batch to the own rank, and the gathered field passes
+    the golden."""
+    from tpu_comm_torch.bench import stencil
+
+    mod = _box(points)
+    dim = 2 if points == 9 else 3
+    counters = [mod.step_block, mod.step_stream]
+    before = [w.launches for w in counters]
+    rec = stencil.run_distributed_bench(stencil.StencilConfig(
+        dim=dim, points=points, size=48, iters=4, bc=bc, impl=impl,
+        mesh=(1,) * dim, verify=True, verify_iters=6, warmup=1, reps=2,
+    ))
+    assert rec["platform"] == "cuda" and rec["verified"] is True
+    assert rec["workload"] == f"stencil{dim}d-{points}pt-dist"
+    launched = [w.launches > b for w, b in zip(counters, before)]
+    assert launched == [impl == "block", impl == "stream"]

@@ -9,12 +9,19 @@ decomposes it over 4 ``gloo`` ranks, started once for this file with
 every case in that one spawn (``torch_mesh_cases.run_cases``), and over a
 world of one in process.
 
+The box stencils (``stencil="9pt"`` on a 2D mesh, ``"27pt"`` on a 3D
+one) run the same way, with the chained ghost exchange; the 27-point one
+also on 8 ranks of mesh (2, 2, 2), the one layout where a corner ghost
+crosses three links.
+
 Contract: the gathered field is bitwise equal to JAX's for every arm x
-dim x bc in float32 AND in bfloat16 (bound: 0 ulps per step; the arms
-round where JAX's do, since the face recompute, the ``torch`` and
-``overlap`` arithmetic run in the field's dtype with ``1/(2d)`` rounded
-to it, and the kernels' plain versions compute in float32 and narrow
-once, as the Pallas kernels do).
+dim x bc, and for the box stencils every arm x bc, in float32 AND in
+bfloat16 (bound: 0 ulps per step; the arms round where JAX's do, since
+the face recompute, the ``torch`` and ``overlap`` arithmetic run in the
+field's dtype with ``1/(2d)``, 1/8 or 1/26 rounded to it, and the
+kernels' plain versions compute in float32 and narrow once, as the
+Pallas kernels do; the box kernels' global edge rows are recomputed
+with the faces, so JAX's field-dtype ``_edge_row`` leaves no trace).
 """
 
 import json
@@ -69,6 +76,25 @@ RUNS = [
                  else ("fused",))
 ]
 CONV = {"tol": 2.5, "max_iters": 60, "check_every": 4}
+#: box stencil -> global shape and mesh of the 4-rank spawn
+BOX_LAYOUTS = {"9pt": ((16, 256), (2, 2)), "27pt": ((8, 16, 128), (2, 2, 1))}
+BOX_RUNS = [
+    (stencil, bc, impl, dtype)
+    for stencil in BOX_LAYOUTS
+    for bc in ("dirichlet", "periodic")
+    for impl in JAX_IMPL
+    for dtype in ("float32", "bfloat16")
+]
+#: box convergence runs: (stencil, arm, bc) -> loop parameters (the
+#: golden stops after 18 and 18 steps)
+BOX_CONV = {
+    ("9pt", "overlap", "dirichlet"): {"tol": 0.1, "max_iters": 60,
+                                      "check_every": 3},
+    ("27pt", "block", "periodic"): {"tol": 0.05, "max_iters": 60,
+                                    "check_every": 3},
+}
+#: the 8-rank spawn: a 27-point field over mesh (2, 2, 2)
+CORNER_GSHAPE, CORNER_MESH = (8, 16, 256), (2, 2, 2)
 
 
 def _jax_kwargs(dim, impl, pack):
@@ -97,6 +123,16 @@ def _jax_run(u0, mesh, iters, bc, impl, dtype="float32", pack="fused"):
     return np.asarray(dec.gather(out).astype(np.float32))
 
 
+def _jax_box_run(u0, mesh, iters, bc, impl, stencil, dtype="float32"):
+    """JAX's box path (its stream arm picks its own chunk: it takes no
+    chunk argument there)."""
+    dec, u = _jax_setup(u0, mesh, bc, dtype)
+    kw = {"interpret": True} if impl in ("block", "stream") else {}
+    out = jdist.run_distributed(u, dec, iters, bc, JAX_IMPL[impl],
+                                stencil=stencil, **kw)
+    return np.asarray(dec.gather(out).astype(np.float32))
+
+
 @pytest.fixture(scope="module")
 def ranks():
     todo = {}
@@ -115,12 +151,26 @@ def ranks():
     for dim, (gshape, mesh) in LAYOUTS.items():
         todo["freeze", dim] = ("freeze", {"u0": cases.field(gshape, dim),
                                           "mesh": mesh})
+    for stencil, bc, impl, dtype in BOX_RUNS:
+        gshape, mesh = BOX_LAYOUTS[stencil]
+        todo["box", stencil, bc, impl, dtype] = ("run", {
+            "u0": cases.field(gshape, 60 + gshape[0]), "mesh": mesh,
+            "iters": ITERS, "bc": bc, "impl": impl, "dtype": dtype,
+            "stencil": stencil,
+        })
+    for stencil, impl, bc in BOX_CONV:
+        gshape, mesh = BOX_LAYOUTS[stencil]
+        todo["box-conv", stencil, impl, bc] = ("conv", {
+            "u0": cases.field(gshape, 70), "mesh": mesh, "bc": bc,
+            "impl": impl, "stencil": stencil, **BOX_CONV[stencil, impl, bc],
+        })
     todo["verdict"] = ("verdict", {})
     common = dict(dim=2, size=64, iters=4, mesh=(2, 2), backend="cpu",
                   warmup=1, reps=5, verify=True, verify_iters=3)
     todo["bench"] = ("bench", {**common, "impl": "auto"})
     todo["bench-conv"] = ("bench", {**common, "impl": "block", "tol": 0.5,
                                     "check_every": 5, "iters": 50})
+    todo["bench-9pt"] = ("bench", {**common, "impl": "auto", "points": 9})
     # one thread per rank: four ranks run beside the other test workers
     with pytest.MonkeyPatch.context() as env:
         env.setenv("OMP_NUM_THREADS", "1")
@@ -180,6 +230,99 @@ def test_convergence_loop_stops_where_jax_stops(ranks, bc, impl):
     np.testing.assert_array_equal(got, np.asarray(dec.gather(want)))
 
 
+@pytest.mark.parametrize("stencil,bc,impl,dtype", BOX_RUNS)
+def test_box_mesh_run_equals_jax_bitwise(ranks, stencil, bc, impl, dtype):
+    gshape, mesh = BOX_LAYOUTS[stencil]
+    u0 = cases.field(gshape, 60 + gshape[0])
+    want = _jax_box_run(u0, mesh, ITERS, bc, impl, stencil, dtype)
+    got = ranks["box", stencil, bc, impl, dtype]
+    assert all(g is None for g in got[1:])
+    assert got[0].dtype == np.float32 and got[0].shape == gshape
+    np.testing.assert_array_equal(got[0], want)
+
+
+@pytest.mark.parametrize("stencil,impl,bc", list(BOX_CONV))
+def test_box_convergence_loop_stops_where_jax_stops(ranks, stencil, impl,
+                                                    bc):
+    gshape, mesh = BOX_LAYOUTS[stencil]
+    conv = BOX_CONV[stencil, impl, bc]
+    dec, u = _jax_setup(cases.field(gshape, 70), mesh, bc, "float32")
+    kw = {"interpret": True} if impl == "block" else {}
+    want, want_it, want_res = jdist.run_distributed_to_convergence(
+        u, dec, conv["tol"], conv["max_iters"],
+        check_every=conv["check_every"], bc=bc, impl=JAX_IMPL[impl],
+        stencil=stencil, **kw,
+    )
+    assert conv["check_every"] < want_it < conv["max_iters"]
+    per_rank = ranks["box-conv", stencil, impl, bc]
+    assert {(it, res) for _, it, res in per_rank} == {per_rank[0][1:]}
+    got, it, res = per_rank[0]
+    assert it == want_it
+    assert res == pytest.approx(want_res, rel=1e-5) and res <= conv["tol"]
+    np.testing.assert_array_equal(got, np.asarray(dec.gather(want)))
+
+
+@pytest.fixture(scope="module")
+def ranks8():
+    """One spawn of 8 gloo ranks on mesh (2, 2, 2): every 27-point arm x
+    bc, and the chained exchange's padded block."""
+    u0 = cases.field(CORNER_GSHAPE, 80)
+    todo = {}
+    for bc in ("dirichlet", "periodic"):
+        for impl in JAX_IMPL:
+            todo["run", bc, impl] = ("run", {
+                "u0": u0, "mesh": CORNER_MESH, "iters": ITERS, "bc": bc,
+                "impl": impl, "stencil": "27pt",
+            })
+    todo["pad"] = ("pad_halo", {"u0": u0, "mesh": CORNER_MESH,
+                                "bc": "periodic"})
+    with pytest.MonkeyPatch.context() as env:
+        env.setenv("OMP_NUM_THREADS", "1")
+        return launch.run_ranks(cases.run_cases, 8, "gloo", (todo,),
+                                timeout_s=300)
+
+
+@pytest.mark.parametrize("impl", list(JAX_IMPL))
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+def test_27pt_on_8_ranks_equals_jax_bitwise(ranks8, bc, impl):
+    u0 = cases.field(CORNER_GSHAPE, 80)
+    want = _jax_box_run(u0, CORNER_MESH, ITERS, bc, impl, "27pt")
+    got = ranks8["run", bc, impl]
+    assert all(g is None for g in got[1:])
+    np.testing.assert_array_equal(got[0], want)
+
+
+def test_corner_ghost_crosses_three_links(ranks8):
+    """On mesh (2, 2, 2) a rank's corner ghost is the cell of the rank
+    diagonally across all three axes: three hops of the chain."""
+    u0 = cases.field(CORNER_GSHAPE, 80)
+    nz, ny, nx = (s // p for s, p in zip(CORNER_GSHAPE, CORNER_MESH))
+    pads = ranks8["pad"]
+    assert pads[0].shape == (nz + 2, ny + 2, nx + 2)
+    assert pads[0][0, 0, 0] == u0[-1, -1, -1]  # the periodic wrap of rank 7
+    assert pads[0][-1, -1, -1] == u0[nz, ny, nx]  # rank 7's first cell
+    assert pads[7][-1, -1, -1] == u0[0, 0, 0]
+    np.testing.assert_array_equal(
+        pads[0], np.pad(u0, 1, mode="wrap")[:nz + 2, :ny + 2, :nx + 2])
+
+
+@pytest.mark.parametrize("impl", list(JAX_IMPL))
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("stencil", list(BOX_LAYOUTS))
+def test_box_world_of_one_equals_jax_bitwise(stencil, bc, impl):
+    """The box stencils on a mesh of one rank (what a single card runs):
+    every axis of the chain wraps onto the own rank."""
+    gshape = {"9pt": (8, 128), "27pt": (4, 8, 128)}[stencil]
+    u0 = cases.field(gshape, 90)
+    want = _jax_box_run(u0, (1,) * len(gshape), ITERS, bc, impl, stencil)
+    dec = Decomposition(
+        make_cart_mesh(len(gshape), periodic=bc == "periodic"), gshape
+    )
+    got = pdist.run_distributed(dec.scatter(u0), dec, ITERS, bc=bc,
+                                impl=impl, stencil=stencil)
+    np.testing.assert_array_equal(dec.gather(got), want)
+
+
 @pytest.mark.parametrize("dim", [1, 2, 3])
 def test_face_wise_freeze_equals_the_mask_form(ranks, dim):
     mesh = LAYOUTS[dim][1]
@@ -196,11 +339,11 @@ def test_verdict_of_rank_0_is_raised_on_every_rank(ranks):
 
 
 def test_rows_pass_the_jax_row_schema(ranks):
-    rows = [ranks["bench"], ranks["bench-conv"]]
+    rows = [ranks["bench"], ranks["bench-conv"], ranks["bench-9pt"]]
     for per_rank in rows:
         assert all(r is None for r in per_rank[1:])
-    row, conv = (per_rank[0] for per_rank in rows)
-    for r in (row, conv):
+    row, conv, box = (per_rank[0] for per_rank in rows)
+    for r in (row, conv, box):
         errors, warnings = validate_row(json.loads(emit_jsonl(r)))
         assert errors == [] and warnings == []
         assert (r["mesh"], r["topo_plan"], r["pack"], r["local_size"]) == (
@@ -221,6 +364,8 @@ def test_rows_pass_the_jax_row_schema(ranks):
     assert (conv["workload"], conv["impl"]) == ("stencil2d-dist-conv",
                                                 "block")
     assert conv["converged"] and conv["iters"] < 50
+    assert (box["workload"], box["impl"]) == ("stencil2d-9pt-dist",
+                                              "overlap")
 
 
 DRIVER = [
@@ -384,7 +529,7 @@ def test_library_refuses_what_jax_refuses():
         jdist.make_local_step(jcart, "periodic", "overlap")
     assert str(port.value) == str(ref.value)
     for kwargs, message in [
-        ({"stencil": "9pt"}, "not yet ported"),
+        ({"stencil": "27pt"}, "stencil='27pt' needs a 3D mesh, got 2D"),
         ({"halo_wire": "bfloat16"}, "halo_wire is not yet ported"),
         ({"t_steps": 4}, "t_steps is not yet ported"),
         ({"rows": 3}, "unknown kwargs"),
@@ -401,6 +546,81 @@ def test_library_refuses_what_jax_refuses():
     with pytest.raises(ValueError, match="check_every must be >= 1"):
         pdist.run_distributed_to_convergence(
             torch.zeros(8, 8), dec, 0.1, 10, check_every=0)
+
+
+@pytest.mark.parametrize("points,size,mesh,impl,bc", [
+    (9, 256, (2, 2), "block", "periodic"),
+    (27, 128, (2, 2, 1), "stream", "dirichlet"),
+])
+def test_box_driver_dump_equals_jax_driver(tmp_path, points, size, mesh,
+                                           impl, bc):
+    """``run_distributed_bench`` of both packages with ``points`` from one
+    ``--load`` file: the port starts its own 4 ranks."""
+    dim = len(mesh)
+    load = tmp_path / "u0.npy"
+    np.save(load, cases.field((size,) * dim, 100 + dim))
+    common = dict(dim=dim, points=points, size=size, iters=2, bc=bc,
+                  mesh=mesh, load=str(load), warmup=1, reps=1)
+    jstencil.run_distributed_bench(jstencil.StencilConfig(
+        impl=JAX_IMPL[impl], backend="cpu-sim",
+        dump=str(tmp_path / "a.npy"), **common,
+    ))
+    rec = pstencil.run_distributed_bench(pstencil.StencilConfig(
+        impl=impl, backend="cpu", verify=True, verify_iters=3,
+        dump=str(tmp_path / "b.npy"), dist_timeout=240, **common,
+    ))
+    np.testing.assert_array_equal(np.load(tmp_path / "b.npy"),
+                                  np.load(tmp_path / "a.npy"))
+    assert rec["workload"] == f"stencil{dim}d-{points}pt-dist"
+    assert rec["verified"] and rec["impl"] == impl
+
+
+def test_box_library_refuses_what_jax_refuses():
+    """The same messages where JAX has the case; the port's wording for
+    the arms it has not ported and its own pack name."""
+    cart2 = make_cart_mesh(2, shape=(2, 2), world=4, rank=0)
+    cart3 = make_cart_mesh(3, shape=(2, 2, 1), world=4, rank=0)
+    jcart3 = jmake_cart_mesh(3, backend="cpu-sim", shape=(2, 2, 1))
+    with pytest.raises(ValueError) as port:
+        pdist.make_local_step(cart3, "dirichlet", "overlap", stencil="9pt")
+    with pytest.raises(ValueError) as ref:
+        jdist.make_local_step(jcart3, "dirichlet", "overlap", stencil="9pt")
+    assert str(port.value) == str(ref.value)
+    for cart, impl, kwargs, message in [
+        (cart2, "overlap", {"stencil": "5pt"}, "unknown stencil '5pt'"),
+        (cart2, "multi", {"stencil": "9pt"}, "impl 'multi' is not yet "
+         "ported for stencil='9pt'"),
+        (cart3, "pallas-wave", {"stencil": "27pt"}, "not yet ported"),
+        (cart3, "partitioned", {"stencil": "27pt"},
+         "stencil='27pt' supports impl='torch'|'overlap'|'block'|'stream'"),
+        (cart3, "block", {"stencil": "27pt", "pack": "kernel"},
+         "pack='kernel' does not apply to the box stencils"),
+        (cart2, "overlap", {"stencil": "9pt", "halo_width": 2},
+         "halo_width is not yet ported"),
+    ]:
+        with pytest.raises(ValueError, match=message):
+            pdist.make_local_step(cart, "dirichlet", impl, **kwargs)
+
+
+def test_box_stencils_from_padded_equal_jax():
+    """Float32 and bfloat16 (the field's dtype, with 1/26 rounded to
+    it): bitwise."""
+    import torch
+
+    for jfn, pfn, shape in (
+        (jdist.stencil9_from_padded, pdist.stencil9_from_padded, (6, 9)),
+        (jdist.stencil27_from_padded, pdist.stencil27_from_padded,
+         (5, 6, 9)),
+    ):
+        p = cases.field(shape, 51)
+        for dtype, jdt in (("float32", jnp.float32),
+                           ("bfloat16", jnp.bfloat16)):
+            want = jfn(jnp.asarray(p).astype(jdt))
+            got = pfn(torch.from_numpy(p).to(DTYPES[dtype]))
+            np.testing.assert_array_equal(
+                to_numpy_field(got), np.asarray(want.astype(jnp.float32)))
+        with pytest.raises(ValueError, match="stencil needs a"):
+            pfn(torch.zeros((4,) * (len(shape) - 1)))
 
 
 def test_stencil_from_padded_and_dtype_constant_equal_jax():

@@ -65,6 +65,8 @@ def test_the_walk_sees_the_whole_package():
         "tpu_comm_torch/comm/halo.py",
         "tpu_comm_torch/kernels/pack.py",
         "tpu_comm_torch/kernels/distributed.py",
+        "tpu_comm_torch/kernels/stencil9.py",
+        "tpu_comm_torch/kernels/stencil27.py",
         "tests/torch_mesh_cases.py",
         "chip_smoke.py",
     } <= names

@@ -173,7 +173,7 @@ def test_block_arm_driver_dump_matches_jax_pallas_arm(tmp_path, dim, bc):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--halo-parts", "2"], ["--points", "9"], ["--fuse-steps", "2"],
+    ["--halo-parts", "2"], ["--t-steps", "4"], ["--fuse-steps", "2"],
     ["--halo-width", "2"], ["--halo-wire", "bfloat16"],
     ["--dimsem", "parallel"], ["--backend", "cpu-sim"],
 ])

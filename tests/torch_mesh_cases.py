@@ -44,11 +44,12 @@ def _np(x):
 
 
 def case_run(p):
-    """``run_distributed`` gathered: the global field on rank 0."""
+    """``run_distributed`` gathered: the global field on rank 0 (the star,
+    or the box stencil ``p["stencil"]``)."""
     cart, dec, block = _setup(p)
     out = pdist.run_distributed(
         block, dec, p["iters"], bc=p["bc"], impl=p["impl"],
-        pack=p.get("pack", "fused"),
+        pack=p.get("pack", "fused"), stencil=p.get("stencil", "star"),
     )
     return dec.gather(out)
 
@@ -58,7 +59,7 @@ def case_conv(p):
     cart, dec, block = _setup(p)
     out, it, res = pdist.run_distributed_to_convergence(
         block, dec, p["tol"], p["max_iters"], check_every=p["check_every"],
-        bc=p["bc"], impl=p["impl"],
+        bc=p["bc"], impl=p["impl"], stencil=p.get("stencil", "star"),
     )
     return dec.gather(out), it, res
 

@@ -6,7 +6,9 @@ Parse a config, initialise the field (or ``--load`` it), optionally
 check the kernels against the serial NumPy golden, time the relaxation
 loop by slope, and report one JSON row with GB/s and iterations/s. The
 loop is a Python loop of one kernel launch per step (``kernels.run``),
-or with ``--tol`` the convergence loop.
+or with ``--tol`` the convergence loop. ``--points 9`` (2D) and
+``--points 27`` (3D) run the box stencils instead of the star, as their
+own workloads (``stencil2d-9pt``, ``stencil3d-27pt``).
 
 With ``--mesh`` the field is decomposed over a Cartesian mesh of ranks,
 one process each (``comm/launch.py`` starts them), and every step
@@ -38,7 +40,7 @@ from tpu_comm_torch.bench.timing import (
     time_fn,
     time_loop_per_iter,
 )
-from tpu_comm_torch.kernels import reference, stencil_module
+from tpu_comm_torch.kernels import kernels_for, reference, stencil_name
 from tpu_comm_torch.kernels.tiling import (
     from_numpy_field,
     numpy_dtype,
@@ -48,7 +50,9 @@ from tpu_comm_torch.kernels.tiling import (
 
 #: default global points per dimension (the JAX driver's defaults)
 DEFAULT_SIZES = {1: 1 << 20, 2: 4096, 3: 256}
-#: the single-device arms; ``auto`` resolves to ``stream``
+#: the single-device arms; ``auto`` resolves to ``stream``. (On the TPU
+#: the JAX driver's ``auto`` for ``--points 27`` under dirichlet picks
+#: ``pallas-wave``; the port follows once that kernel is ported.)
 IMPLS = ("stream", "block")
 #: the arms of a mesh run; ``auto`` resolves to ``overlap``
 DIST_IMPLS = ("torch", "overlap", "block", "stream")
@@ -63,10 +67,12 @@ UNPORTED_IMPLS = (
 class StencilConfig:
     dim: int = 1
     size: int = 1 << 20  # global points per dimension
+    # 0 = the star of ``dim``; 9 = the 2D box, 27 = the 3D box
+    points: int = 0
     iters: int = 100
     dtype: str = "float32"
     bc: str = "dirichlet"
-    # "auto" resolves to "stream" (the only arm ported so far)
+    # "auto" resolves to "stream" on one device, "overlap" on a mesh
     impl: str = "auto"
     # rows per CUDA block (1D: rows of 128 elements; 2D: rows of a
     # 32-column strip) or z-planes per block (3D); None = the kernel's
@@ -94,6 +100,12 @@ class StencilConfig:
     @property
     def global_shape(self) -> tuple[int, ...]:
         return (self.size,) * self.dim
+
+
+def _stencil_tag(cfg: StencilConfig) -> str:
+    """Workload base name: the box stencils are their own workloads."""
+    suffix = f"-{stencil_name(cfg.points)}" if cfg.points else ""
+    return f"stencil{cfg.dim}d{suffix}"
 
 
 def resolve_impl(impl: str, distributed: bool = False) -> str:
@@ -168,7 +180,8 @@ def _verify_convergence(cfg: StencilConfig, got: np.ndarray,
     """The device loop must stop after the same number of iterations as
     the serial golden and land on the same field."""
     want, want_iters, _ = reference.jacobi_run_to_convergence(
-        u0, cfg.tol, cfg.iters, check_every=cfg.check_every, bc=cfg.bc
+        u0, cfg.tol, cfg.iters, check_every=cfg.check_every, bc=cfg.bc,
+        step=reference.GOLDEN_STEPS[cfg.points],
     )
     if iters_run != want_iters:
         raise AssertionError(
@@ -181,6 +194,7 @@ def _verify_convergence(cfg: StencilConfig, got: np.ndarray,
 def _validate(cfg: StencilConfig) -> StencilConfig:
     if cfg.dim not in (1, 2, 3):
         raise ValueError(f"--dim must be 1, 2 or 3, got {cfg.dim}")
+    kernels_for(cfg.dim, cfg.points)  # --points needs its --dim
     if cfg.size < 3:
         raise ValueError(f"--size must be >= 3, got {cfg.size}")
     if cfg.iters < 1:
@@ -271,7 +285,7 @@ def run_single_device(cfg: StencilConfig) -> dict:
 
     cfg = _validate(cfg)
     device = get_device(cfg.backend)
-    kernels = stencil_module(cfg.dim)
+    kernels = kernels_for(cfg.dim, cfg.points)
     dtype = torch_dtype(cfg.dtype)
     u_dev = from_numpy_field(
         _initial_field(cfg, numpy_dtype(dtype)), device, dtype
@@ -314,7 +328,7 @@ def run_single_device(cfg: StencilConfig) -> dict:
         t = time_fn(lambda: run_conv()[0], warmup=max(cfg.warmup - 1, 0),
                     reps=cfg.reps)
         record = {
-            "workload": f"stencil{cfg.dim}d-conv",
+            "workload": f"{_stencil_tag(cfg)}-conv",
             **base,
             **_convergence_fields(cfg, iters_run, res, t, traffic),
         }
@@ -332,7 +346,8 @@ def run_single_device(cfg: StencilConfig) -> dict:
     if cfg.verify:
         got = to_numpy_field(run_iters(cfg.verify_iters))
         check_against_golden(
-            got, reference.jacobi_run(u0, cfg.verify_iters, bc=cfg.bc),
+            got, reference.GOLDEN_RUNS[cfg.points](
+                u0, cfg.verify_iters, bc=cfg.bc),
             cfg.dtype, iters=cfg.verify_iters,
         )
     per_iter, t_lo, _ = time_loop_per_iter(
@@ -341,7 +356,7 @@ def run_single_device(cfg: StencilConfig) -> dict:
     if cfg.dump:
         np.save(cfg.dump, to_numpy_field(run_iters(cfg.iters)))
     record = {
-        "workload": f"stencil{cfg.dim}d",
+        "workload": _stencil_tag(cfg),
         **base,
         **_slope_fields(cfg, per_iter, t_lo, traffic),
     }
@@ -374,7 +389,9 @@ def _validate_distributed(cfg: StencilConfig) -> StencilConfig:
     cart = make_cart_mesh(cfg.dim, shape=mesh, periodic=cfg.bc == "periodic",
                           world=math.prod(mesh), rank=0)
     Decomposition(cart, cfg.global_shape)  # divisibility
-    make_local_step(cart, cfg.bc, cfg.impl, pack=cfg.pack)  # arm x pack
+    # arm x pack x stencil
+    make_local_step(cart, cfg.bc, cfg.impl, pack=cfg.pack,
+                    stencil=stencil_name(cfg.points))
     return dataclasses.replace(cfg, mesh=mesh)
 
 
@@ -426,7 +443,7 @@ def run_rank(cfg: StencilConfig) -> dict | None:
     # field is rounded on its way there)
     u0 = to_numpy_field(from_numpy_field(u_host, "cpu", dtype)) if root \
         else None
-    kwargs = {"pack": cfg.pack}
+    kwargs = {"pack": cfg.pack, "stencil": stencil_name(cfg.points)}
     traffic = stencil_bytes_per_iter(dec.local_shape, u_dev.element_size())
     halo_traffic = halo_bytes_per_iter(
         dec.local_shape, cart, u_dev.element_size()
@@ -473,7 +490,7 @@ def run_rank(cfg: StencilConfig) -> dict | None:
         t = time_fn(lambda: run_conv()[0], warmup=max(cfg.warmup - 1, 0),
                     reps=cfg.reps, barrier=barrier)
         record = {
-            "workload": f"stencil{cfg.dim}d-dist-conv",
+            "workload": f"{_stencil_tag(cfg)}-dist-conv",
             **base,
             **_convergence_fields(cfg, iters_run, res, t, traffic,
                                   halo_traffic),
@@ -494,7 +511,8 @@ def run_rank(cfg: StencilConfig) -> dict | None:
         got = dec.gather(sync(run_iters(cfg.verify_iters)))
         _collective_verdict(
             lambda: check_against_golden(
-                got, reference.jacobi_run(u0, cfg.verify_iters, bc=cfg.bc),
+                got, reference.GOLDEN_RUNS[cfg.points](
+                    u0, cfg.verify_iters, bc=cfg.bc),
                 cfg.dtype, iters=cfg.verify_iters,
             ),
             device,
@@ -504,7 +522,7 @@ def run_rank(cfg: StencilConfig) -> dict | None:
         barrier=barrier,
     )
     record = {
-        "workload": f"stencil{cfg.dim}d-dist",
+        "workload": f"{_stencil_tag(cfg)}-dist",
         **base,
         **_slope_fields(cfg, per_iter, t_lo, traffic, halo_traffic),
     }

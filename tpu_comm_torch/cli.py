@@ -1,16 +1,17 @@
 """Command line of the port: ``python -m tpu_comm_torch <subcommand>``.
 
-- ``stencil`` — the 1D/2D/3D Jacobi driver (``bench/stencil.py``), on one
-  device or with ``--mesh`` across a Cartesian mesh of ranks with
-  ghost-cell halo exchange; the JAX CLI's flag names for what it has, the
-  port's own arm names (``bench/__init__.py`` maps them).
+- ``stencil`` — the 1D/2D/3D Jacobi driver (``bench/stencil.py``), the
+  star stencils or with ``--points 9|27`` the box stencils, on one device
+  or with ``--mesh`` across a Cartesian mesh of ranks with ghost-cell
+  halo exchange; the JAX CLI's flag names for what it has, the port's own
+  arm names (``bench/__init__.py`` maps them).
 - ``membw``   — the STREAM bandwidth quartet (``bench/membw.py``), with the
   JAX CLI's flags; its arms carry the port's names (``bench/__init__.py``
   maps them).
 - ``info``    — torch and CUDA versions and the device a backend gives.
 
-Flags of the JAX CLI that the port does not have (``--points``,
-``--fuse-steps``, ``--halo-*``, ``--t-steps``, ...) are not accepted;
+Flags of the JAX CLI that the port does not have (``--fuse-steps``,
+``--halo-*``, ``--t-steps``, ...) are not accepted;
 ``membw --dimsem`` is refused with its reason. Errors print
 ``error: ...`` and exit 2.
 """
@@ -59,6 +60,7 @@ def _cmd_stencil(args) -> int:
     try:
         record = run(StencilConfig(
             dim=args.dim,
+            points=args.points,
             size=args.size if args.size else DEFAULT_SIZES[args.dim],
             iters=args.iters,
             dtype=args.dtype,
@@ -210,6 +212,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p_st.add_argument(
         "--bc", choices=["dirichlet", "periodic"], default="dirichlet"
+    )
+    p_st.add_argument(
+        "--points", type=int, choices=[9, 27], default=0,
+        help="stencil shape: omit for the per-dim star (3/5/7-point); "
+        "9 = the 2D box stencil (--dim 2; reads corner neighbors), "
+        "27 = the 3D box stencil (--dim 3; reads edge AND corner "
+        "neighbors). On a mesh, the workloads that consume the transitive "
+        "corner ghosts. Arms: 'stream' and 'block' on one device; "
+        "'torch', 'overlap', 'block' and 'stream' on a mesh",
     )
     p_st.add_argument(
         "--impl", default="auto",

@@ -12,7 +12,10 @@ ones.
 - pack    -> a contiguous copy of the boundary slab (or the face-pack
              kernel, ``kernels/pack.py``)
 - Isend/Irecv -> every axis' four transfers posted in ONE batch, each
-             send sliced from the raw block (:func:`start_exchange_ghosts`)
+             send sliced from the raw block (:func:`start_exchange_ghosts`);
+             or, for the box stencils' corner and edge ghosts, one batch
+             per axis, each axis' sends grown by the earlier axes' ghosts
+             (:func:`start_exchange_transitive`)
 - Waitall -> ``PendingGhosts.wait``; work that needs only the raw block
              (the interior update) runs between the two
 - unpack  -> the ghosts stay beside the block; :func:`pad_halo` and
@@ -116,6 +119,37 @@ def _edges(block: torch.Tensor, array_axis: int, width: int):
             block.narrow(array_axis, n - width, width).contiguous())
 
 
+def _grow(x: torch.Tensor, ghosts: dict, along: int, start: int,
+          axes) -> torch.Tensor:
+    """Grow ``x``, a slab along array axis ``along`` that starts at index
+    ``start`` of the block (negative or past the end in a ghost), by the
+    ghost lines of each axis in ``axes``, in that order. Axis k's ghosts
+    (``ghosts[k] = (lo, hi)``) are padded along every axis before k, so
+    ``x``'s lines in them start ``width`` further along ``along`` when
+    ``along < k``."""
+    length = x.shape[along]
+    for k in axes:
+        lo, hi = ghosts[k]
+        i = start + lo.shape[k] if along < k else start
+        x = torch.cat([lo.narrow(along, i, length), x,
+                       hi.narrow(along, i, length)], dim=k)
+    return x
+
+
+def _post_along(block: torch.Tensor, cart: CartMesh, mesh_axis: str,
+                array_axis: int, width: int, ghosts: dict) -> PendingGhosts:
+    """Post one axis' exchange: the block's two edge slabs along
+    ``array_axis``, each grown by the ghost lines of the axes already in
+    ``ghosts`` (none: the raw block's edges)."""
+    n = block.shape[array_axis]
+    lo, hi = (
+        _grow(block.narrow(array_axis, start, width), ghosts, array_axis,
+              start, sorted(ghosts)).contiguous()
+        for start in (0, n - width)
+    )
+    return _post(cart, [(mesh_axis, array_axis, lo, hi)])
+
+
 def ghosts_along(
     block: torch.Tensor, cart: CartMesh, mesh_axis: str, array_axis: int,
     width: int = 1,
@@ -128,11 +162,83 @@ def ghosts_along(
     non-periodic axis.
     """
     _check_width(block, mesh_axis, array_axis, width)
-    lo_edge, hi_edge = _edges(block, array_axis, width)
-    ((_, lo, hi),) = _post(
-        cart, [(mesh_axis, array_axis, lo_edge, hi_edge)]
-    ).wait()
+    ((_, lo, hi),) = _post_along(block, cart, mesh_axis, array_axis, width,
+                                 {}).wait()
     return lo, hi
+
+
+class PendingChain:
+    """The transitive exchange in flight: the first axis' transfers are
+    posted; ``wait()`` lands them, then posts and lands every later axis
+    in turn, and returns ``[(array_axis, lo_ghost, hi_ghost), ...]``.
+
+    Axis a's slabs carry the ghosts of axes 0..a-1 (a send of axis a is
+    the block's edge grown by those ghost lines), so its ghosts are padded
+    along every earlier axis: corners arrive after two hops, 3D corners
+    after three. Only face-sized tensors are made.
+    """
+
+    def __init__(self, block: torch.Tensor, cart: CartMesh, width: int):
+        for array_axis, mesh_axis in enumerate(cart.axis_names):
+            _check_width(block, mesh_axis, array_axis, width)
+        self._block, self._cart, self._width = block, cart, width
+        self._ghosts: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._pending = self._post_axis(0)
+
+    def _post_axis(self, a: int) -> PendingGhosts:
+        return _post_along(self._block, self._cart, self._cart.axis_names[a],
+                           a, self._width, self._ghosts)
+
+    def wait(self) -> Ghosts:
+        for a in range(len(self._cart.axis_names)):
+            if a > 0:
+                self._pending = self._post_axis(a)
+            ((_, lo, hi),) = self._pending.wait()
+            self._ghosts[a] = (lo, hi)
+        return [(a, lo, hi) for a, (lo, hi) in sorted(self._ghosts.items())]
+
+
+def start_exchange_transitive(block: torch.Tensor, cart: CartMesh,
+                              width: int = 1) -> PendingChain:
+    """Post the first axis of the chained (transitive) ghost exchange
+    that the box stencils need: corner and edge ghosts included. Work
+    that depends only on ``block`` can run until ``wait()``; the later
+    axes wait on the earlier ones, so each is its own batch of
+    transfers, in :func:`_post`'s order and tags."""
+    return PendingChain(block, cart, width)
+
+
+def exchange_transitive(block: torch.Tensor, cart: CartMesh,
+                        width: int = 1) -> Ghosts:
+    """:func:`start_exchange_transitive`, waited for."""
+    return start_exchange_transitive(block, cart, width).wait()
+
+
+def padded_slab(block: torch.Tensor, ghosts: Ghosts, axis: int, start: int,
+                stop: int) -> torch.Tensor:
+    """Indices ``[start, stop)`` along ``axis`` of the block padded with
+    its transitive ghosts (:func:`exchange_transitive`), every other axis
+    padded in full: ``pad_halo(block)`` narrowed to those indices (shifted
+    by the width), built from face-sized tensors only. Indices below 0
+    come from the low ghost, at or past the block's end from the high
+    one."""
+    g = {a: (lo, hi) for a, lo, hi in ghosts}
+    n = block.shape[axis]
+    width = g[axis][0].shape[axis]
+    later = range(axis + 1, block.dim())
+    parts = []
+    a, b = max(start, 0), min(stop, n)  # the part inside the block
+    if start < 0:
+        lo = g[axis][0].narrow(axis, width + start, min(stop, 0) - start)
+        parts.append(_grow(lo, g, axis, start, later))
+    if b > a:
+        parts.append(_grow(block.narrow(axis, a, b - a), g, axis, a,
+                           [k for k in range(block.dim()) if k != axis]))
+    if stop > n:
+        first = max(start, n)
+        hi = g[axis][1].narrow(axis, first - n, stop - first)
+        parts.append(_grow(hi, g, axis, first, later))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=axis)
 
 
 def pad_halo(block: torch.Tensor, cart: CartMesh,
@@ -140,13 +246,12 @@ def pad_halo(block: torch.Tensor, cart: CartMesh,
     """Concatenate received ghosts onto every axis of ``block`` (array
     axis i is exchanged over ``cart.axis_names[i]``).
 
-    Axes are exchanged one after the other, each on the result of the
-    one before, so the second axis' slabs carry the first axis' ghosts:
-    corner ghosts arrive transitively. The result grows by ``2*width``
-    along each axis.
+    The ghosts come from the chained exchange
+    (:func:`exchange_transitive`): the second axis' slabs carry the first
+    axis' ghosts, so corner ghosts arrive transitively. The result grows
+    by ``2*width`` along each axis.
     """
-    for array_axis, mesh_axis in enumerate(cart.axis_names):
-        lo, hi = ghosts_along(block, cart, mesh_axis, array_axis, width)
+    for array_axis, lo, hi in exchange_transitive(block, cart, width):
         block = torch.cat([lo, block, hi], dim=array_axis)
     return block
 

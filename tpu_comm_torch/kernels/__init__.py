@@ -9,6 +9,17 @@ from __future__ import annotations
 
 import torch
 
+#: the box stencils: the distributed step's ``stencil`` name (the JAX
+#: ``make_local_step``'s) -> (field dim, ``--points``); the one table
+#: that links the two spellings
+BOX = {"9pt": (2, 9), "27pt": (3, 27)}
+
+
+def stencil_name(points: int) -> str:
+    """The distributed step's ``stencil`` for ``--points`` (0: the
+    star)."""
+    return {0: "star", **{p: name for name, (_, p) in BOX.items()}}[points]
+
 
 def run_steps(step, u0: torch.Tensor, iters: int, bc: str,
               **kwargs) -> torch.Tensor:
@@ -62,14 +73,33 @@ def run_steps_to_convergence(
     return (src if n else u0.clone()), it, res
 
 
-def stencil_module(dim: int):
-    """Per-dimension kernel module (step_plain / step_stream / run)."""
-    if dim == 1:
-        from tpu_comm_torch.kernels import jacobi1d as mod
-    elif dim == 2:
-        from tpu_comm_torch.kernels import jacobi2d as mod
-    elif dim == 3:
-        from tpu_comm_torch.kernels import jacobi3d as mod
+def kernels_for(dim: int, points: int = 0):
+    """Kernel module of a stencil (step_plain / step_stream / step_block /
+    run): the star of ``dim`` for ``points`` 0, the 2D 9-point or 3D
+    27-point box otherwise (the JAX driver's ``_kernels_for``, with its
+    messages)."""
+    if points == 0:
+        if dim == 1:
+            from tpu_comm_torch.kernels import jacobi1d as mod
+        elif dim == 2:
+            from tpu_comm_torch.kernels import jacobi2d as mod
+        elif dim == 3:
+            from tpu_comm_torch.kernels import jacobi3d as mod
+        else:
+            raise ValueError(f"dim must be 1, 2 or 3, got {dim}")
+    elif points == 9:
+        if dim != 2:
+            raise ValueError("--points 9 (the 2D box stencil) needs --dim 2")
+        from tpu_comm_torch.kernels import stencil9 as mod
+    elif points == 27:
+        if dim != 3:
+            raise ValueError(
+                "--points 27 (the 3D box stencil) needs --dim 3"
+            )
+        from tpu_comm_torch.kernels import stencil27 as mod
     else:
-        raise ValueError(f"dim must be 1, 2 or 3, got {dim}")
+        raise ValueError(
+            f"--points must be 9 (2D box) or 27 (3D box; omit for the "
+            f"star), got {points}"
+        )
     return mod

@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-SOURCES = ("jacobi_stream.cu", "membw.cu", "jacobi_block.cu", "pack.cu")
+SOURCES = ("jacobi_stream.cu", "membw.cu", "jacobi_block.cu", "pack.cu",
+           "box.cu")
 NVCC_FLAGS = (
     "-O3",
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -48,6 +49,10 @@ SIGNATURES = {
     "tc_jacobi1d_block": (_P, _P, _N, _I, _I, _P),
     "tc_jacobi2d_block": (_P, _P, _I, _I, _I, _I, _P),
     "tc_jacobi3d_block": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "tc_stencil9_stream": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "tc_stencil27_stream": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tc_stencil9_block": (_P, _P, _I, _I, _I, _I, _P),
+    "tc_stencil27_block": (_P, _P, _I, _I, _I, _I, _I, _P),
     "tc_pack_faces": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tc_membw_chunked": (_P, _P, _P, _N, _I, _I, ctypes.c_float, _I, _P),
     "tc_membw_stream": (_P, _P, _N, _I, _I, _P),

@@ -35,6 +35,16 @@ that is a branch, not a mask). The association is JAX's: per-axis
 neighbour pairs, summed in axis order, times ``1/(2d)`` in the field's
 dtype, so float32 stays bitwise. The steps write in place into their
 output buffer.
+
+``stencil="9pt"`` (2D mesh) and ``"27pt"`` (3D mesh) are the box
+stencils, which read the corner and (3D) edge neighbours. Their ghosts
+come from the chained exchange (``halo.start_exchange_transitive``: each
+axis' slabs carry the earlier axes' ghosts), every arm as above; the
+faces are recomputed by :func:`box_faces_from_ghosts` from 3-wide slabs
+of the transitively padded block, and the ``block``/``stream`` arms run
+the box kernels (``csrc/box.cu``). ``overlap`` computes the interior
+while the first axis' transfers are in flight; the later axes wait on
+it.
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ import torch.distributed as dist
 from tpu_comm_torch.bench import JAX_STENCIL_IMPLS
 from tpu_comm_torch.comm import halo
 from tpu_comm_torch.domain import Decomposition
-from tpu_comm_torch.kernels import stencil_module
+from tpu_comm_torch.kernels import BOX, kernels_for
 from tpu_comm_torch.kernels.pack import PACK_IMPLS
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.topo import CartMesh
@@ -57,10 +67,10 @@ UNPORTED_OPTIONS = ("halo_wire", "halo_parts", "halo_width", "t_steps",
                     "fuse_steps")
 
 
-def _inv(nd: int, dtype: torch.dtype) -> float:
-    """``1/(2d)`` rounded to the field's dtype (``jnp.asarray(1/(2d),
-    dtype)``), as an exact Python float."""
-    return float(torch.tensor(1.0 / (2 * nd), dtype=torch.float64).to(dtype))
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to the field's dtype (``jnp.asarray(x, dtype)``), as
+    an exact Python float: the stencils' ``1/(2d)``, 1/8 and 1/26."""
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
 
 
 def stencil_from_padded(padded: torch.Tensor,
@@ -81,7 +91,67 @@ def stencil_from_padded(padded: torch.Tensor,
         n = padded.shape[axis] - 2
         term = inner.narrow(axis, 0, n) + inner.narrow(axis, 2, n)
         acc = term if acc is None else acc + term
-    return torch.mul(acc, _inv(d, padded.dtype), out=out)
+    return torch.mul(acc, _rounded(1.0 / (2 * d), padded.dtype), out=out)
+
+
+def stencil9_from_padded(padded: torch.Tensor,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """9-point (box) update of the interior of a 1-cell-padded 2D block,
+    in the field's dtype (written into ``out`` when given).
+
+    The diagonal slices reach the padded array's corners, which hold the
+    neighbours' data only when the ghosts came from the chained exchange.
+    The association is ``reference.jacobi9_step``'s.
+    """
+    if padded.dim() != 2:
+        raise ValueError(
+            f"9-point stencil needs a 2D block, got {padded.dim()}D"
+        )
+    up, down = padded[:-2, 1:-1], padded[2:, 1:-1]
+    left, right = padded[1:-1, :-2], padded[1:-1, 2:]
+    ul, ur = padded[:-2, :-2], padded[:-2, 2:]
+    dl, dr = padded[2:, :-2], padded[2:, 2:]
+    return torch.mul(
+        ((up + down) + (left + right)) + ((ul + dr) + (ur + dl)), 0.125,
+        out=out,
+    )
+
+
+def stencil27_from_padded(padded: torch.Tensor,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """27-point (box) update of the interior of a 1-cell-padded 3D block,
+    in the field's dtype with 1/26 rounded to it (written into ``out``
+    when given).
+
+    The diagonal slices reach the padded array's edges (two chained
+    exchanges) and corners (three). The association is
+    ``reference.jacobi27_step``'s.
+    """
+    if padded.dim() != 3:
+        raise ValueError(
+            f"27-point stencil needs a 3D block, got {padded.dim()}D"
+        )
+    nz, ny, nx = (s - 2 for s in padded.shape)
+
+    def sh(dz, dy, dx):
+        return padded[1 + dz:1 + dz + nz, 1 + dy:1 + dy + ny,
+                      1 + dx:1 + dx + nx]
+
+    def box8(dz):
+        return (
+            (sh(dz, -1, 0) + sh(dz, 1, 0)) + (sh(dz, 0, -1) + sh(dz, 0, 1))
+        ) + (
+            (sh(dz, -1, -1) + sh(dz, 1, 1)) + (sh(dz, -1, 1) + sh(dz, 1, -1))
+        )
+
+    return torch.mul(
+        ((box8(-1) + sh(-1, 0, 0)) + (box8(1) + sh(1, 0, 0))) + box8(0),
+        _rounded(1.0 / 26.0, padded.dtype), out=out,
+    )
+
+
+FROM_PADDED = {"star": stencil_from_padded, "9pt": stencil9_from_padded,
+               "27pt": stencil27_from_padded}
 
 
 def ring_mask_padded(shape, cart: CartMesh, t: int = 0) -> torch.Tensor:
@@ -129,7 +199,7 @@ def faces_from_ghosts(new: torch.Tensor, block: torch.Tensor,
     skipped: :func:`dirichlet_freeze` restores it next.
     """
     nd = new.dim()
-    inv = _inv(nd, new.dtype)
+    inv = _rounded(1.0 / (2 * nd), new.dtype)
     ghost = {axis: (lo, hi) for axis, lo, hi in ghosts}
     for axis in range(nd):
         n = block.shape[axis]
@@ -166,18 +236,44 @@ def faces_from_ghosts(new: torch.Tensor, block: torch.Tensor,
     return new
 
 
-def _interior_update(block: torch.Tensor,
-                     out: torch.Tensor | None) -> torch.Tensor:
+def box_faces_from_ghosts(new: torch.Tensor, block: torch.Tensor,
+                          ghosts: halo.Ghosts, cart: CartMesh, bc: str,
+                          from_padded) -> torch.Tensor:
+    """Overwrite every boundary-face cell of ``new``, in place, with the
+    exact box-stencil update (``from_padded``) of a 3-wide slab of the
+    block padded with its transitive ghosts (``halo.padded_slab``): the
+    slab's middle along the face's axis is the face, and it is padded in
+    full along the other axes, so its edge and corner cells come out
+    right. The values are JAX's ``_box_faces_from_padded``; only
+    face-sized tensors are made. Under ``dirichlet`` a face on the global
+    boundary is skipped: :func:`dirichlet_freeze` restores it next.
+    """
+    for axis in range(new.dim()):
+        n = block.shape[axis]
+        for lo_face in (True, False):
+            edge = cart.coords[axis] == (
+                0 if lo_face else cart.shape[axis] - 1
+            )
+            if bc == "dirichlet" and edge:
+                continue
+            idx = 0 if lo_face else n - 1
+            slab = halo.padded_slab(block, ghosts, axis, idx - 1, idx + 2)
+            from_padded(slab, out=new.narrow(axis, idx, 1))
+    return new
+
+
+def _interior_update(block: torch.Tensor, out: torch.Tensor | None,
+                     from_padded=stencil_from_padded) -> torch.Tensor:
     """The ``overlap`` arm's interior pass: the update of cells
     ``[1:-1, ...]`` from the raw block alone, written into ``out``. Face
-    cells are left for :func:`faces_from_ghosts` (an axis of size <= 2
-    has no interior: every cell is a face cell then)."""
+    cells are left for the face recompute (an axis of size <= 2 has no
+    interior: every cell is a face cell then)."""
     new = torch.empty_like(block) if out is None else out
     if all(s > 2 for s in block.shape):
         center = new
         for a in range(block.dim()):
             center = center.narrow(a, 1, block.shape[a] - 2)
-        stencil_from_padded(block, out=center)
+        from_padded(block, out=center)
     return new
 
 
@@ -211,40 +307,80 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
                 "impl=overlap|block|stream"
             )
     stencil = kwargs.pop("stencil", "star")
-    if stencil != "star":
-        raise ValueError(
-            f"stencil={stencil!r} is not yet ported; see ROADMAP.md"
-        )
+    if stencil not in FROM_PADDED:
+        raise ValueError(f"unknown stencil {stencil!r} (star|9pt|27pt)")
+    nd = len(cart.axis_names)
+    points = 0
+    if stencil in BOX:
+        # the corner-ghost path: the box stencils read diagonal
+        # neighbours, so their ghosts come from the chained exchange
+        want_nd, points = BOX[stencil]
+        if nd != want_nd:
+            raise ValueError(
+                f"stencil={stencil!r} needs a {want_nd}D mesh, got {nd}D"
+            )
+        if impl in ("multi", "pallas-wave"):
+            raise ValueError(
+                f"impl {impl!r} is not yet ported for stencil={stencil!r}; "
+                f"see ROADMAP.md"
+            )
+        if impl not in IMPLS:
+            raise ValueError(
+                f"stencil={stencil!r} supports impl="
+                f"{'|'.join(repr(i) for i in IMPLS)}, got {impl!r}"
+            )
+        if pack != "fused":
+            # the box path's ghosts come from the chained exchange, never
+            # the face-pack kernel: accepting the flag would label rows as
+            # a pack arm that never ran
+            raise ValueError(
+                f"pack={pack!r} does not apply to the box stencils "
+                f"(stencil={stencil!r} exchanges via the transitive "
+                "pad_halo chain)"
+            )
     for name in UNPORTED_OPTIONS:
         if kwargs.pop(name, None) is not None:
             raise ValueError(f"{name} is not yet ported; see ROADMAP.md")
     if kwargs:
         raise ValueError(f"unknown kwargs for impl={impl!r}: {sorted(kwargs)}")
+    from_padded = FROM_PADDED[stencil]
 
     if impl == "torch":
 
         def local_step(block, out=None):
-            new = stencil_from_padded(halo.pad_halo(block, cart))
+            new = from_padded(halo.pad_halo(block, cart))
             if bc == "dirichlet":
                 dirichlet_freeze(new, block, cart)
             return new
 
         return local_step
 
-    if pack == "kernel":
+    if stencil in BOX:
         def start_exchange(block):
-            return halo.start_exchange_ghosts_3d_packed(block, cart, "kernel")
+            return halo.start_exchange_transitive(block, cart)
+
+        def faces(new, block, ghosts):
+            box_faces_from_ghosts(new, block, ghosts, cart, bc, from_padded)
     else:
-        def start_exchange(block):
-            return halo.start_exchange_ghosts(block, cart)
+        if pack == "kernel":
+            def start_exchange(block):
+                return halo.start_exchange_ghosts_3d_packed(
+                    block, cart, "kernel")
+        else:
+            def start_exchange(block):
+                return halo.start_exchange_ghosts(block, cart)
+
+        def faces(new, block, ghosts):
+            faces_from_ghosts(new, block, ghosts, cart, bc)
 
     if impl == "overlap":
-        update = _interior_update
+        def update(block, out):
+            return _interior_update(block, out, from_padded)
     elif impl in ("block", "stream"):
         # the kernels compute the block-periodic step; the face recompute
         # below makes the seams exact, so no ghost enters a kernel and it
         # depends on the raw block only
-        kernel = stencil_module(len(cart.axis_names)).STEPS[impl]
+        kernel = kernels_for(nd, points).STEPS[impl]
 
         def update(block, out):
             return kernel(block, bc="periodic", out=out)
@@ -260,7 +396,7 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
         pending = start_exchange(block)
         new = update(block, out)
         ghosts = pending.wait()
-        faces_from_ghosts(new, block, ghosts, cart, bc)
+        faces(new, block, ghosts)
         if bc == "dirichlet":
             dirichlet_freeze(new, block, cart)
         return new
