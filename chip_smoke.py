@@ -15,6 +15,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
      and of the box stencils (2D 9-point, 3D 27-point): kernel x
      {float32, bfloat16, float16} x {dirichlet, periodic}, 20 steps at
      full size, plus ragged shapes and (stream) a non-default chunk;
+   - temporal blocking, the multi kernels of the 1D and 2D star and the
+     9-point box: every dtype x bc at full size over 3 passes of t = 8,
+     t = 1 (in float32 also equal to one step of the block kernel), a t
+     above the kernel's most steps a launch (chained sub-passes), ragged
+     shapes and non-default tiles;
    - the face pack: the four packed faces x every dtype at 512^3 and at
      ragged shapes;
    - membw: every op a kernel serves x every dtype x aliased on/off x the
@@ -35,18 +40,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
    exchange, one NCCL batch per axis) the block, stream and overlap arms
    of ``--points 9`` and the block and stream arms of ``--points 27``,
    each dirichlet and periodic, plus one star and one ``--points 9``
-   ``--tol`` run whose residual goes through ``all_reduce``; each row
-   must say ``platform: cuda`` and ``verified: true``, the run's kernels
-   must have launched and no other;
+   ``--tol`` run whose residual goes through ``all_reduce``; temporal
+   blocking: ``stencil --impl multi --t-steps 8 --iters 96`` for the 1D
+   and 2D star and ``--points 9`` at full size (its kernel launched once
+   a pass, and no other), and on a mesh of one ``--impl multi --t-steps
+   4`` (the width-4 chained exchange, no kernel) for the star in 1D, 2D,
+   3D and both boxes, each bc; each row must say ``platform: cuda`` and
+   ``verified: true``, the run's kernels must have launched and no
+   other;
 5. times at the full float32 sizes (CUDA events): kernel, plain version,
    one library call computing the same function (a yardstick the port
    never calls), and for each stencil a device-to-device ``copy_`` and the
    port's own chunked copy kernel at the same bytes; and per mesh arm of
    the 3D star and of both box stencils the whole distributed step
    (exchange, kernel, face recompute, freeze) beside its kernel alone and
-   its exchange alone;
-6. the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-   line.
+   its exchange alone; for the multi kernels the time per pass of t = 8,
+   its bound, and a circular convolution with the t-fold stencil as the
+   library call; for the mesh ``multi`` arm one pass divided by t beside
+   the block arm's step;
+6. the script's time, the ``{"kernels": [...]}`` line and, last, the
+   ``{"ok": true, ...}`` line.
 
 Full sizes: stencils 1D 2^26 points, 2D 8192^2, 3D 512^3 (the box
 stencils too); membw 2^26 elements. In float32 that is 256/256/512 MiB
@@ -128,6 +141,35 @@ RAGGED = {
 LEAST_DEPTH = {"block": (3, 27), "stream": (27,)}
 #: a non-default chunk per dim (rows / rows / planes), results must not move
 ODD_CHUNK = {1: 1, 2: 5, 3: 3}
+#: temporal blocking: the family keys with a multi kernel, the kernel and
+#: the TPU kernel body it replaces
+MULTI_KERNELS = {
+    1: ("jacobi1d_multi", "tpu_comm/kernels/jacobi1d.py:426"),
+    2: ("jacobi2d_multi", "tpu_comm/kernels/jacobi2d.py:387"),
+    9: ("stencil9_multi", "tpu_comm/kernels/stencil9.py:378"),
+}
+MULTI_SOURCE = "tpu_comm_torch/csrc/multi.cu"
+#: steps a pass of the checks, the single-device runs and the times
+MULTI_T = 8
+#: passes of the full-size check
+MULTI_PASSES = 3
+#: a non-default tile per field dim (1D: rows of 128; 2D: rows, columns)
+MULTI_ODD_TILES = {1: [{"rows_per_chunk": 5}],
+                   2: [{"rows_per_chunk": 40, "cols_per_chunk": 72},
+                       {"rows_per_chunk": 7, "cols_per_chunk": 300}]}
+#: the t and the tiles phase 5 also times a pass at (float32, dirichlet)
+MULTI_T_SWEEP = (1, 2, 4, 16)
+MULTI_TILE_SWEEP = {
+    1: [{"rows_per_chunk": r} for r in (8, 16, 64)],
+    2: [{"rows_per_chunk": r, "cols_per_chunk": c}
+        for r, c in ((48, 48), (32, 96), (96, 96), (48, 112))],
+}
+#: loop length of the single-device multi runs (a multiple of MULTI_T)
+MULTI_ITERS = 96
+#: steps per exchange of the mesh multi runs, and the stencil keys they
+#: run (each bc)
+MESH_MULTI_T = 4
+MESH_MULTI_KEYS = (1, 2, 3, 9, 27)
 MEMBW_N = 1 << 26
 #: 25 rows of 128: the last chunk of 8 rows is ragged
 MEMBW_RAGGED = 128 * 8 * 3 + 128
@@ -346,9 +388,12 @@ def drive_mesh(torch, counters) -> dict:
     runs += [(key, impl, "fused", "dirichlet",
               ["--tol", "1e-3", "--check-every", "4"])
              for key, impl in MESH_TOL_RUNS]
+    runs += [(key, "multi", "fused", bc, ["--t-steps", str(MESH_MULTI_T)])
+             for key in MESH_MULTI_KEYS for bc in ("dirichlet", "periodic")]
     with tempfile.TemporaryDirectory() as tmp:
         for n, (key, impl, pack, bc, extra) in enumerate(runs):
             dim = DIM[key]
+            tol = "--tol" in extra
             path = Path(tmp) / f"mesh{n}.jsonl"
             for w in counters.values():
                 w.launches = 0
@@ -357,11 +402,11 @@ def drive_mesh(torch, counters) -> dict:
                     str(SIZES[dim]),
                     "--impl", impl, "--pack", pack, "--bc", bc, "--verify",
                     "--verify-iters", str(VERIFY_ITERS), "--iters",
-                    str(8 if extra else MESH_ITERS), "--warmup", "2",
+                    str(8 if tol else MESH_ITERS), "--warmup", "2",
                     "--reps", "5", "--jsonl", str(path), *extra]
             rc = cli.main(argv)
             counts = {k: w.launches for k, w in counters.items()}
-            what = " ".join(argv[1:-2] if not extra else argv[1:])
+            what = " ".join(argv[1:-2] + extra)
             if rc != 0:
                 fail(f"{what} exited {rc}")
             row = json.loads(path.read_text().splitlines()[-1])
@@ -369,7 +414,9 @@ def drive_mesh(torch, counters) -> dict:
             want = {"platform": "cuda", "verified": True, "impl": arm,
                     "pack": pack, "mesh": [1] * dim, "topo_plan": None,
                     "workload": f"{_workload(key)}-dist"
-                    + ("-conv" if extra else "")}
+                    + ("-conv" if tol else "")}
+            if arm == "multi":
+                want["t_steps"] = MESH_MULTI_T
             got = {k: row.get(k) for k in want}
             if got != want:
                 fail(f"{what}: row says {got}, expected {want}")
@@ -387,7 +434,8 @@ def drive_mesh(torch, counters) -> dict:
             emit({"main_path": {
                 "mesh": [1] * dim, "stencil": _workload(key), "impl": arm,
                 "pack": pack, "bc": bc,
-                "tol": bool(extra),
+                "tol": tol, **({"t_steps": MESH_MULTI_T}
+                               if arm == "multi" else {}),
                 "launches": {k: counts[k] for k in sorted(expected)},
                 "gbps_eff": row["gbps_eff"], "iters": row["iters"],
                 "secs_per_iter": row["secs_per_iter"],
@@ -532,17 +580,20 @@ def measure_pack(torch) -> dict:
 #: the distributed steps phase 5 times: (key, arm, --pack)
 DIST_STEPS = [(3, "block", "kernel"), (3, "block", "fused"),
               (3, "stream", "kernel"), (3, "overlap", "kernel"),
-              (3, "torch", "fused"), (9, "block", "fused"),
-              (9, "stream", "fused"), (9, "overlap", "fused"),
+              (3, "torch", "fused"), (3, "multi", "fused"),
+              (9, "block", "fused"), (9, "stream", "fused"),
+              (9, "overlap", "fused"), (9, "multi", "fused"),
               (27, "block", "fused"), (27, "stream", "fused"),
-              (27, "overlap", "fused")]
+              (27, "overlap", "fused"), (27, "multi", "fused")]
 
 
 def measure_dist_steps(torch, mods) -> list:
     """Phase 5, the whole distributed step at full float32 size on a mesh
     of one (exchange through NCCL, update, face recompute, freeze) beside
     its update kernel alone and its exchange alone, per (stencil, arm,
-    pack) of DIST_STEPS and bc."""
+    pack) of DIST_STEPS and bc. A ``multi`` step (t = MESH_MULTI_T) is one
+    width-t exchange and t updates: its time per iteration is a t-th of
+    it."""
     from tpu_comm_torch.comm import halo, launch
     from tpu_comm_torch.kernels import stencil_name
     from tpu_comm_torch.kernels.distributed import make_local_step
@@ -556,16 +607,22 @@ def measure_dist_steps(torch, mods) -> list:
             u = random_field(torch, shape, torch.float32, seed=42)
             dst = torch.empty_like(u)
             points = key if key in BOX else 0
+            t = MESH_MULTI_T if impl == "multi" else 1
+            extra = {"t_steps": t} if impl == "multi" else {}
             for bc in ("dirichlet", "periodic"):
                 cart = make_cart_mesh(dim, periodic=bc == "periodic")
                 step = make_local_step(cart, bc, impl, pack=pack,
-                                       stencil=stencil_name(points))
-                dist_step_ms = time_ms(torch, lambda: step(u, out=dst), 20)
+                                       stencil=stencil_name(points), **extra)
+                dist_step_ms = time_ms(torch, lambda: step(u, out=dst),
+                                       20 // t)
                 # the exchange alone: pack, post, wait (the torch arm's
                 # chained pad_halo has no such part)
                 exchange_ms = None
                 if impl != "torch":
-                    if points:
+                    if impl == "multi":
+                        def start(u, cart):
+                            return halo.start_exchange_transitive(u, cart, t)
+                    elif points:
                         start = halo.start_exchange_transitive
                     elif pack == "kernel":
                         start = halo.start_exchange_ghosts_3d_packed
@@ -580,8 +637,9 @@ def measure_dist_steps(torch, mods) -> list:
                         torch, lambda: kernel(u, "periodic", out=dst), 20)
                 rows.append({"stencil": _workload(key), "impl": impl,
                              "pack": pack, "bc": bc, "shape": list(shape),
-                             "dtype": "float32",
+                             "dtype": "float32", "t_steps": t,
                              "dist_step_ms": dist_step_ms,
+                             "dist_step_ms_per_iter": dist_step_ms / t,
                              "kernel_ms": kernel_ms,
                              "exchange_ms": exchange_ms})
                 emit({"dist_step": {**rows[-1],
@@ -589,6 +647,227 @@ def measure_dist_steps(torch, mods) -> list:
             del u, dst
             torch.cuda.empty_cache()
     return rows
+
+
+def check_multi(torch, mods) -> dict:
+    """Phase 3, temporal blocking: each multi kernel against its plain
+    version, bitwise; returns the max abs error per stencil key (0.0 when
+    every case was equal)."""
+    from tpu_comm_torch.kernels import run_steps
+    from tpu_comm_torch.kernels.tiling import MULTI_T_MAX
+
+    errs = {}
+    for key, (name, _) in MULTI_KERNELS.items():
+        mod, dim = mods[key], DIM[key]
+        full = (SIZES[dim],) * dim
+        t_over = 2 * MULTI_T_MAX[dim] + 3
+        worst = 0.0
+        cases = 0
+
+        def hold(got, want, what):
+            nonlocal worst, cases
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            worst = max(worst, err)
+            cases += 1
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                fail(f"{name} {what}: kernel != plain (max abs err {err})")
+
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for bc in ("dirichlet", "periodic"):
+                u = random_field(torch, full, dtype, seed=50 + dim)
+                hold(mod.run_multi(u, MULTI_PASSES * MULTI_T, bc,
+                                   t_steps=MULTI_T),
+                     run_steps(mod.step_multi_plain, u, MULTI_PASSES, bc,
+                               t_steps=MULTI_T),
+                     f"{full} {dtype} {bc} {MULTI_PASSES} passes of "
+                     f"t={MULTI_T}")
+                one = mod.step_multi(u, bc, 1)
+                hold(one, mod.step_multi_plain(u, bc, 1),
+                     f"{full} {dtype} {bc} t=1")
+                if dtype == torch.float32:
+                    hold(one, mod.step_block(u, bc),
+                         f"{full} {bc} t=1 against the block kernel")
+                before = mod.step_multi.launches
+                got = mod.step_multi(u, bc, t_over)
+                if mod.step_multi.launches - before != 3:
+                    fail(f"{name} t={t_over}: expected 3 chained launches")
+                hold(got, mod.step_multi_plain(u, bc, t_over),
+                     f"{full} {dtype} {bc} t={t_over} (chained)")
+                if dtype == torch.float32:
+                    ref = mod.step_multi(u, bc, MULTI_T)
+                    for tile in MULTI_ODD_TILES[dim]:
+                        hold(mod.step_multi(u, bc, MULTI_T, **tile), ref,
+                             f"{full} {bc} tile {tile}")
+                    del ref
+                del u, one, got
+                for shape in RAGGED[dim]:
+                    u = random_field(torch, shape, dtype, seed=60 + dim)
+                    for t in (3, MULTI_T):
+                        hold(mod.step_multi(u, bc, t),
+                             mod.step_multi_plain(u, bc, t),
+                             f"{shape} {dtype} {bc} t={t}")
+            torch.cuda.empty_cache()
+        errs[key] = worst
+        emit({"check": {"kernel": name, "cases": cases,
+                        "shapes": [list(full)] + RAGGED[dim],
+                        "t_steps": [1, 3, MULTI_T, t_over],
+                        "max_abs_err": worst,
+                        "tolerance": "bitwise (torch.equal)",
+                        "elapsed_s": time.perf_counter() - T0}})
+    return errs
+
+
+def drive_multi(torch, counters) -> dict:
+    """Phase 4, temporal blocking on one device: ``stencil --impl multi``
+    at full size per multi family and bc; each run must launch its
+    kernel once a pass and no other. Returns each kernel's launches."""
+    from tpu_comm_torch import cli
+
+    launches = {name: 0 for name, _ in MULTI_KERNELS.values()}
+    warmup, reps = 3, 10
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, (name, _) in MULTI_KERNELS.items():
+            for bc in ("dirichlet", "periodic"):
+                path = Path(tmp) / f"multi{key}-{bc}.jsonl"
+                for w in counters.values():
+                    w.launches = 0
+                argv = ["stencil", *_stencil_argv(key), "--size",
+                        str(SIZES[DIM[key]]), "--impl", "multi",
+                        "--t-steps", str(MULTI_T), "--iters",
+                        str(MULTI_ITERS), "--bc", bc, "--verify",
+                        "--verify-iters", str(VERIFY_ITERS), "--warmup",
+                        str(warmup), "--reps", str(reps), "--jsonl",
+                        str(path)]
+                rc = cli.main(argv)
+                counts = {k: w.launches for k, w in counters.items()}
+                what = " ".join(argv[1:-2])
+                if rc != 0:
+                    fail(f"{what} exited {rc}")
+                row = json.loads(path.read_text().splitlines()[-1])
+                want = {"platform": "cuda", "verified": True,
+                        "impl": "multi", "t_steps": MULTI_T,
+                        "workload": _workload(key)}
+                got = {k: row.get(k) for k in want}
+                if got != want:
+                    fail(f"{what}: row says {got}, expected {want}")
+                # the verify run's passes (its iterations rounded up to
+                # t), then iters/t and 3*iters/t a timed loop
+                passes = -(-VERIFY_ITERS // MULTI_T) + (
+                    (warmup + reps) * 4 * MULTI_ITERS // MULTI_T)
+                if counts[name] != passes:
+                    fail(f"{what}: {name} launched {counts[name]} times, "
+                         f"expected {passes} (one a pass)")
+                if any(c for k, c in counts.items() if k != name):
+                    fail(f"{what} launched other kernels: {counts}")
+                launches[name] += counts[name]
+                emit({"main_path": {
+                    "stencil": _workload(key), "impl": "multi", "bc": bc,
+                    "t_steps": MULTI_T, "launches": counts[name],
+                    "gbps_eff": row["gbps_eff"],
+                    "secs_per_iter": row["secs_per_iter"],
+                    "elapsed_s": time.perf_counter() - T0}})
+    return launches
+
+
+def composed_weights(torch, key: int, t: int):
+    """The stencil's weights convolved with themselves t times, in
+    float64 on the host: the (2t+1)^d kernel of t periodic steps."""
+    import torch.nn.functional as F
+
+    dim = DIM[key]
+    w = torch.zeros((1, 1) + (3,) * dim, dtype=torch.float64)
+    if key in BOX:
+        w.fill_(1.0 / (3 ** dim - 1))
+        w[(0, 0) + (1,) * dim] = 0.0
+    else:
+        for axis in range(dim):
+            for side in (0, 2):
+                idx = [0, 0] + [1] * dim
+                idx[2 + axis] = side
+                w[tuple(idx)] = 1.0 / (2 * dim)
+    conv = {1: F.conv1d, 2: F.conv2d}[dim]
+    k = w
+    for _ in range(t - 1):  # the weights are symmetric: no flip needed
+        k = conv(F.pad(k, (2,) * (2 * dim)), w)
+    return k.float()
+
+
+def measure_multi(torch, mods) -> dict:
+    """Phase 5, temporal blocking: per-pass times of the multi kernels at
+    t = 8 at the full float32 sizes, beside their bound, the plain
+    version, copies of the same bytes and one circular convolution with
+    the t-fold composed stencil."""
+    from tpu_comm_torch.kernels import membw
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    t = MULTI_T
+    for key, (name, _) in MULTI_KERNELS.items():
+        mod, dim = mods[key], DIM[key]
+        shape = (SIZES[dim],) * dim
+        u = random_field(torch, shape, torch.float32, seed=70 + key)
+        dst = torch.empty_like(u)
+        n = u.numel()
+        kernel_ms = time_ms(
+            torch, lambda: mod.step_multi(u, "dirichlet", t, out=dst), 30)
+        periodic_ms = time_ms(
+            torch, lambda: mod.step_multi(u, "periodic", t, out=dst), 30)
+        plain_ms = time_ms(
+            torch, lambda: mod.step_multi_plain(u, "dirichlet", t, out=dst),
+            3)
+        copy_ms = time_ms(torch, lambda: dst.copy_(u), 50)
+        flat_u, flat_dst = u.reshape(-1), dst.reshape(-1)
+        chunked_copy_ms = time_ms(
+            torch, lambda: membw.step_chunked(flat_u, None, 1.0, "copy",
+                                              out=flat_dst), 50)
+        conv = {1: torch.nn.Conv1d, 2: torch.nn.Conv2d}[dim](
+            1, 1, 2 * t + 1, padding=t, padding_mode="circular",
+            bias=False).cuda()
+        x = u.reshape((1, 1) + shape)
+        with torch.no_grad():
+            conv.weight.copy_(composed_weights(torch, key, t))
+            library_ms = time_ms(torch, lambda: conv(x), 5)
+            lib_err = float(
+                (conv(x).reshape(shape)
+                 - mod.step_multi_plain(u, "periodic", t)).abs().max())
+        # where the time goes: a pass at other t (its fixed part and its
+        # part a step) and at other tiles
+        t_sweep_ms = {
+            str(k): time_ms(torch, lambda: mod.step_multi(
+                u, "dirichlet", k, out=dst), 10)
+            for k in MULTI_T_SWEEP}
+        tile_sweep_ms = {
+            json.dumps(tile): time_ms(torch, lambda: mod.step_multi(
+                u, "dirichlet", t, out=dst, **tile), 10)
+            for tile in MULTI_TILE_SWEEP[dim]}
+        nbytes = 2 * n * u.element_size()
+        ops = t * OPS_PER_POINT[key] * n
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
+        out[key] = {
+            "kernel": name, "shape": list(shape), "dtype": "float32",
+            "bc": "dirichlet", "t_steps": t,
+            "t_sweep_ms": t_sweep_ms, "tile_sweep_ms": tile_sweep_ms,
+            "kernel_ms": kernel_ms, "kernel_periodic_ms": periodic_ms,
+            "kernel_ms_per_iter": kernel_ms / t,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": f"torch.nn.Conv{dim}d(kernel {2 * t + 1}, "
+                            "padding_mode='circular') with the t-fold "
+                            "stencil: the same periodic function up to "
+                            "rounding",
+            "library_max_abs_err": lib_err,
+            "copy_ms": copy_ms, "chunked_copy_ms": chunked_copy_ms,
+            "kernel_over_chunked_copy": kernel_ms / chunked_copy_ms,
+            "bytes": nbytes, "ops": ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        }
+        emit({"times": {**out[key], "elapsed_s": time.perf_counter() - T0}})
+        del u, dst, x, conv, flat_u, flat_dst
+        torch.cuda.empty_cache()
+    return out
 
 
 def membw_kernel_of(op: str, arm: str) -> str:
@@ -829,14 +1108,19 @@ def main() -> int:
     }
     counters[PACK_KERNEL[0]] = pack.pack_faces
     counters.update({f"membw.{w.__name__}": w for w in membw.WRAPPERS})
+    counters.update({MULTI_KERNELS[key][0]: mods[key].step_multi
+                     for key in MULTI_KERNELS})
     errs = {arm: check_kernels(torch, mods, arm) for arm in KERNELS}
+    multi_errs = check_multi(torch, mods)
     pack_err = check_pack(torch)
     membw_errs = check_membw(torch)
     check_stream_loads(libs)
     launches = drive_main_path(torch, counters)
+    multi_launches = drive_multi(torch, counters)
     membw_launches = drive_membw(torch, counters)
     mesh_launches = drive_mesh(torch, counters)
     times = {arm: measure_times(torch, mods, arm) for arm in KERNELS}
+    multi_times = measure_multi(torch, mods)
     pack_times = measure_pack(torch)
     membw_times = measure_membw(torch)
     measure_dist_steps(torch, mods)
@@ -860,6 +1144,17 @@ def main() -> int:
                 "chunked_copy_ms": t["chunked_copy_ms"],
                 "shape": t["shape"], "dtype": "float32",
             })
+    for key, (name, replaces) in MULTI_KERNELS.items():
+        t = multi_times[key]
+        stencil_rows.append({
+            "name": name, "route": "cuda", "source": MULTI_SOURCE,
+            "replaces": replaces, "launches": multi_launches[name],
+            "max_abs_err": multi_errs[key], "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "copy_ms": t["copy_ms"], "chunked_copy_ms": t["chunked_copy_ms"],
+            "t_steps": t["t_steps"], "shape": t["shape"], "dtype": "float32",
+        })
     pack_row = {
         "name": PACK_KERNEL[0], "route": "cuda", "source": PACK_SOURCE,
         "replaces": PACK_KERNEL[1],
@@ -882,6 +1177,7 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "op": op, "shape": t["shape"], "dtype": "float32",
         })
+    emit({"elapsed": {"seconds": time.perf_counter() - T0}})
     emit({"kernels": stencil_rows + [pack_row] + membw_rows})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

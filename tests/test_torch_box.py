@@ -285,8 +285,8 @@ def test_sub_fp32_driver_verifies_against_golden(points, dtype):
      "--impl overlap is an arm of a mesh run: pass --mesh"),
     (["--points", "27", "--dim", "3", "--impl", "pallas"],
      "the port calls this arm 'block'"),
-    (["--points", "27", "--dim", "3", "--mesh", "2,2,1", "--impl", "multi"],
-     "--impl multi is not yet ported"),
+    (["--points", "27", "--dim", "3", "--mesh", "2,2,1", "--impl",
+      "partitioned"], "--impl partitioned is not yet ported"),
     (["--points", "27", "--dim", "3", "--mesh", "2,2,1", "--pack", "kernel",
       "--impl", "block"],
      "pack='kernel' does not apply to the box stencils"),

@@ -340,3 +340,101 @@ def test_box_mesh_of_one_on_the_card_through_nccl(card, points, bc, impl):
     assert rec["workload"] == f"stencil{dim}d-{points}pt-dist"
     launched = [w.launches > b for w, b in zip(counters, before)]
     assert launched == [impl == "block", impl == "stream"]
+
+
+#: temporal blocking: the families with a multi kernel (the star's dim or
+#: the 9-point box) and the shapes their kernels are held at
+MULTI_SHAPES = {
+    1: [(3,), (4097,), (1 << 20,)],
+    2: [(3, 3), (37, 301), (1001, 37), (512, 512)],
+    9: [(3, 3), (37, 301), (1001, 37), (512, 512)],
+}
+
+
+def _multi(key):
+    from tpu_comm_torch.kernels import stencil9
+
+    return {1: jacobi1d, 2: jacobi2d, 9: stencil9}[key]
+
+
+def _t_max(key):
+    from tpu_comm_torch.kernels.tiling import MULTI_T_MAX
+
+    return MULTI_T_MAX[1 if key == 1 else 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("key", [1, 2, 9])
+def test_multi_kernel_bitwise_equals_plain_version(card, key, bc, dtype):
+    """t = 1, 2, 8 and one more than a launch takes (two chained launches
+    through the f32 scratch field): one narrowing in every case."""
+    mod = _multi(key)
+    for shape in MULTI_SHAPES[key]:
+        u = _field(shape, dtype, seed=len(shape))
+        for t in (1, 2, 8, _t_max(key) + 1):
+            got = mod.step_multi(u, bc, t)
+            want = mod.step_multi_plain(u, bc, t)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.equal(got, want), (shape, t)
+        if dtype == torch.float32:
+            assert torch.equal(mod.step_multi(u, bc, 1),
+                               mod.step_block(u, bc)), shape
+
+
+@pytest.mark.parametrize("key", [1, 2, 9])
+def test_multi_tile_sets_the_grid_not_the_result(card, key):
+    mod = _multi(key)
+    u = _field(MULTI_SHAPES[key][1], torch.float32)
+    ref = mod.step_multi(u, "periodic", 8)
+    tiles = ([{"rows_per_chunk": r} for r in (1, 2, 3, 7, 100)]
+             if key == 1 else
+             [{"rows_per_chunk": r, "cols_per_chunk": c}
+              for r, c in ((1, 1), (3, 5), (40, 72), (7, 300), (128, 32))])
+    for tile in tiles:
+        got = mod.step_multi(u, "periodic", 8, **tile)
+        assert torch.equal(got, ref), tile
+
+
+@pytest.mark.parametrize("key", [1, 2, 9])
+def test_multi_wrapper_counts_launches_and_checks_its_arguments(card, key):
+    mod = _multi(key)
+    u = _field(MULTI_SHAPES[key][1], torch.float32)
+    before = mod.step_multi.launches
+    out = torch.empty_like(u)
+    assert mod.step_multi(u, t_steps=8, out=out) is out
+    assert mod.step_multi.launches == before + 1
+    mod.step_multi(u, t_steps=2 * _t_max(key) + 1)
+    assert mod.step_multi.launches == before + 4  # three chained launches
+    with pytest.raises(ValueError, match="alias"):
+        mod.step_multi(u, out=u)
+    with pytest.raises(ValueError, match="takes"):
+        mod.step_multi(u.double())
+    with pytest.raises(ValueError, match="t_steps must be >= 1"):
+        mod.step_multi(u, t_steps=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        mod.step_multi(u, rows_per_chunk=1 << 12)
+    assert mod.step_multi.launches == before + 4
+
+
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("dim,points", [(1, 0), (2, 0), (3, 0), (2, 9),
+                                        (3, 27)])
+def test_multi_mesh_of_one_on_the_card_through_nccl(card, dim, points, bc):
+    """The mesh ``multi`` arm at world size 1: one width-3 chained
+    exchange through NCCL to the own rank, three steps of the padded
+    block; the gathered field passes the golden and no kernel runs."""
+    from tpu_comm_torch.bench import stencil
+
+    mod = _multi(points or dim) if (points or dim) in (1, 2, 9) else None
+    before = None if mod is None else mod.step_multi.launches
+    rec = stencil.run_distributed_bench(stencil.StencilConfig(
+        dim=dim, points=points, size=24, iters=6, t_steps=3, bc=bc,
+        impl="multi", mesh=(1,) * dim, verify=True, verify_iters=4,
+        warmup=1, reps=2,
+    ))
+    assert rec["platform"] == "cuda" and rec["verified"] is True
+    assert (rec["impl"], rec["t_steps"]) == ("multi", 3)
+    if mod is not None:
+        assert mod.step_multi.launches == before

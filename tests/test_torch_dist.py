@@ -14,9 +14,17 @@ one) run the same way, with the chained ghost exchange; the 27-point one
 also on 8 ranks of mesh (2, 2, 2), the one layout where a corner ghost
 crosses three links.
 
+The ``multi`` arm (one chained exchange of width-t ghosts, then t steps
+of the padded block in the field's dtype) runs for the star in 1D, 2D
+and 3D and for both boxes against JAX's ``run_distributed(impl="multi",
+t_steps=t)``, on the 4-rank spawn at t = 4, on the 8-rank spawn for the
+27-point box at t = 2 (a width-2 corner crosses three links), at world
+size 1, and through the driver.
+
 Contract: the gathered field is bitwise equal to JAX's for every arm x
-dim x bc, and for the box stencils every arm x bc, in float32 AND in
-bfloat16 (bound: 0 ulps per step; the arms round where JAX's do, since
+dim x bc, and for the box stencils every arm x bc, ``multi`` included,
+in float32 AND in bfloat16 (bound: 0 ulps per step; the arms round where
+JAX's do, since
 the face recompute, the ``torch`` and ``overlap`` arithmetic run in the
 field's dtype with ``1/(2d)``, 1/8 or 1/26 rounded to it, and the
 kernels' plain versions compute in float32 and narrow once, as the
@@ -95,6 +103,32 @@ BOX_CONV = {
 }
 #: the 8-rank spawn: a 27-point field over mesh (2, 2, 2)
 CORNER_GSHAPE, CORNER_MESH = (8, 16, 256), (2, 2, 2)
+#: the multi arm's steps per exchange on the 4-rank spawn (the 3D local
+#: blocks are 4 planes deep: t may not exceed that) and its runs: (stencil
+#: of the star of that dim or the box, bc, dtype) over 2 exchanges
+MULTI_T = 4
+MULTI_LAYOUTS = {
+    "star1": LAYOUTS[1], "star2": LAYOUTS[2], "star3": LAYOUTS[3],
+    "9pt": BOX_LAYOUTS["9pt"], "27pt": BOX_LAYOUTS["27pt"],
+}
+MULTI_RUNS = [
+    (stencil, bc, dtype)
+    for stencil in MULTI_LAYOUTS
+    for bc in ("dirichlet", "periodic")
+    for dtype in ("float32", "bfloat16")
+]
+
+
+def _multi_stencil(name: str) -> str:
+    """The distributed step's ``stencil`` of a MULTI_LAYOUTS key."""
+    return "star" if name.startswith("star") else name
+
+
+def _jax_multi_run(u0, mesh, iters, bc, stencil, t, dtype="float32"):
+    dec, u = _jax_setup(u0, mesh, bc, dtype)
+    out = jdist.run_distributed(u, dec, iters, bc, "multi", t_steps=t,
+                                stencil=stencil)
+    return np.asarray(dec.gather(out).astype(np.float32))
 
 
 def _jax_kwargs(dim, impl, pack):
@@ -164,6 +198,14 @@ def ranks():
             "u0": cases.field(gshape, 70), "mesh": mesh, "bc": bc,
             "impl": impl, "stencil": stencil, **BOX_CONV[stencil, impl, bc],
         })
+    for name, bc, dtype in MULTI_RUNS:
+        gshape, mesh = MULTI_LAYOUTS[name]
+        todo["multi", name, bc, dtype] = ("run", {
+            "u0": cases.field(gshape, 110 + len(gshape)), "mesh": mesh,
+            "iters": 2 * MULTI_T, "bc": bc, "impl": "multi",
+            "dtype": dtype, "stencil": _multi_stencil(name),
+            "t_steps": MULTI_T,
+        })
     todo["verdict"] = ("verdict", {})
     common = dict(dim=2, size=64, iters=4, mesh=(2, 2), backend="cpu",
                   warmup=1, reps=5, verify=True, verify_iters=3)
@@ -171,6 +213,8 @@ def ranks():
     todo["bench-conv"] = ("bench", {**common, "impl": "block", "tol": 0.5,
                                     "check_every": 5, "iters": 50})
     todo["bench-9pt"] = ("bench", {**common, "impl": "auto", "points": 9})
+    todo["bench-multi"] = ("bench", {**common, "impl": "multi",
+                                     "t_steps": 2})
     # one thread per rank: four ranks run beside the other test workers
     with pytest.MonkeyPatch.context() as env:
         env.setenv("OMP_NUM_THREADS", "1")
@@ -241,6 +285,20 @@ def test_box_mesh_run_equals_jax_bitwise(ranks, stencil, bc, impl, dtype):
     np.testing.assert_array_equal(got[0], want)
 
 
+@pytest.mark.parametrize("name,bc,dtype", MULTI_RUNS)
+def test_multi_mesh_run_equals_jax_bitwise(ranks, name, bc, dtype):
+    """Two width-4 exchanges and eight steps on 4 ranks: bitwise in
+    float32 and bfloat16 (both round every step in the field's dtype)."""
+    gshape, mesh = MULTI_LAYOUTS[name]
+    u0 = cases.field(gshape, 110 + len(gshape))
+    want = _jax_multi_run(u0, mesh, 2 * MULTI_T, bc, _multi_stencil(name),
+                          MULTI_T, dtype)
+    got = ranks["multi", name, bc, dtype]
+    assert all(g is None for g in got[1:])
+    assert got[0].dtype == np.float32 and got[0].shape == gshape
+    np.testing.assert_array_equal(got[0], want)
+
+
 @pytest.mark.parametrize("stencil,impl,bc", list(BOX_CONV))
 def test_box_convergence_loop_stops_where_jax_stops(ranks, stencil, impl,
                                                     bc):
@@ -276,6 +334,13 @@ def ranks8():
             })
     todo["pad"] = ("pad_halo", {"u0": u0, "mesh": CORNER_MESH,
                                 "bc": "periodic"})
+    for bc in ("dirichlet", "periodic"):
+        todo["multi", bc] = ("run", {
+            "u0": u0, "mesh": CORNER_MESH, "iters": 4, "bc": bc,
+            "impl": "multi", "stencil": "27pt", "t_steps": 2,
+        })
+    todo["pad2"] = ("pad_halo", {"u0": u0, "mesh": CORNER_MESH,
+                                 "bc": "periodic", "width": 2})
     with pytest.MonkeyPatch.context() as env:
         env.setenv("OMP_NUM_THREADS", "1")
         return launch.run_ranks(cases.run_cases, 8, "gloo", (todo,),
@@ -290,6 +355,25 @@ def test_27pt_on_8_ranks_equals_jax_bitwise(ranks8, bc, impl):
     got = ranks8["run", bc, impl]
     assert all(g is None for g in got[1:])
     np.testing.assert_array_equal(got[0], want)
+
+
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+def test_27pt_multi_on_8_ranks_equals_jax_bitwise(ranks8, bc):
+    """Width-2 ghosts on mesh (2, 2, 2): a 2x2x2 corner block crosses
+    three links; two exchanges of two steps each."""
+    u0 = cases.field(CORNER_GSHAPE, 80)
+    want = _jax_multi_run(u0, CORNER_MESH, 4, bc, "27pt", 2)
+    got = ranks8["multi", bc]
+    assert all(g is None for g in got[1:])
+    np.testing.assert_array_equal(got[0], want)
+
+
+def test_width_2_corner_ghosts_cross_three_links(ranks8):
+    u0 = cases.field(CORNER_GSHAPE, 80)
+    nz, ny, nx = (s // p for s, p in zip(CORNER_GSHAPE, CORNER_MESH))
+    np.testing.assert_array_equal(
+        ranks8["pad2"][0],
+        np.pad(u0, 2, mode="wrap")[:nz + 4, :ny + 4, :nx + 4])
 
 
 def test_corner_ghost_crosses_three_links(ranks8):
@@ -323,6 +407,52 @@ def test_box_world_of_one_equals_jax_bitwise(stencil, bc, impl):
     np.testing.assert_array_equal(dec.gather(got), want)
 
 
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("name", list(MULTI_LAYOUTS))
+def test_multi_world_of_one_equals_jax_bitwise(name, bc):
+    """``multi`` on a mesh of one rank: every axis' width-t exchange
+    wraps onto the own rank (no process group: the own edges are the
+    ghosts)."""
+    gshape = {"star1": (1024,), "star2": (8, 128), "star3": (4, 8, 128),
+              "9pt": (8, 128), "27pt": (4, 8, 128)}[name]
+    u0 = cases.field(gshape, 120)
+    want = _jax_multi_run(u0, (1,) * len(gshape), 6, bc,
+                          _multi_stencil(name), 3)
+    dec = Decomposition(
+        make_cart_mesh(len(gshape), periodic=bc == "periodic"), gshape
+    )
+    block = dec.scatter(u0)
+    keep = block.clone()
+    got = pdist.run_distributed(block, dec, 6, bc=bc, impl="multi",
+                                stencil=_multi_stencil(name), t_steps=3)
+    np.testing.assert_array_equal(dec.gather(got), want)
+    assert (block == keep).all()  # the input block is only read
+
+
+def test_multi_library_refuses_what_jax_refuses():
+    cart = make_cart_mesh(2, shape=(2, 2), world=4, rank=0)
+    jcart = jmake_cart_mesh(2, backend="cpu-sim", shape=(2, 2))
+    dec = Decomposition(cart, (16, 16))
+    jdec = JDecomposition(jcart, (16, 16))
+    import torch
+
+    with pytest.raises(ValueError) as port:
+        pdist.run_distributed(torch.zeros(8, 8), dec, 6, impl="multi",
+                              t_steps=4)
+    with pytest.raises(ValueError) as ref:
+        jdist.run_distributed(jdec.scatter(jnp.zeros((16, 16))), jdec, 6,
+                              impl="multi", t_steps=4)
+    assert str(port.value) == str(ref.value)
+    with pytest.raises(ValueError, match="t_steps must be >= 1"):
+        pdist.make_local_step(cart, "dirichlet", "multi", t_steps=0)
+    step = pdist.make_local_step(cart, "dirichlet", "multi", t_steps=9)
+    with pytest.raises(ValueError, match=r"local block \(8, 8\) smaller "
+                       "than halo width t_steps=9"):
+        step(torch.zeros(8, 8))
+    with pytest.raises(ValueError, match="pack='kernel' needs a 3D mesh"):
+        pdist.make_local_step(cart, "dirichlet", "multi", pack="kernel")
+
+
 @pytest.mark.parametrize("dim", [1, 2, 3])
 def test_face_wise_freeze_equals_the_mask_form(ranks, dim):
     mesh = LAYOUTS[dim][1]
@@ -339,11 +469,12 @@ def test_verdict_of_rank_0_is_raised_on_every_rank(ranks):
 
 
 def test_rows_pass_the_jax_row_schema(ranks):
-    rows = [ranks["bench"], ranks["bench-conv"], ranks["bench-9pt"]]
+    rows = [ranks["bench"], ranks["bench-conv"], ranks["bench-9pt"],
+            ranks["bench-multi"]]
     for per_rank in rows:
         assert all(r is None for r in per_rank[1:])
-    row, conv, box = (per_rank[0] for per_rank in rows)
-    for r in (row, conv, box):
+    row, conv, box, multi = (per_rank[0] for per_rank in rows)
+    for r in (row, conv, box, multi):
         errors, warnings = validate_row(json.loads(emit_jsonl(r)))
         assert errors == [] and warnings == []
         assert (r["mesh"], r["topo_plan"], r["pack"], r["local_size"]) == (
@@ -366,6 +497,10 @@ def test_rows_pass_the_jax_row_schema(ranks):
     assert conv["converged"] and conv["iters"] < 50
     assert (box["workload"], box["impl"]) == ("stencil2d-9pt-dist",
                                               "overlap")
+    # the width-1 halo model for multi rows too (as JAX's): the same
+    # bytes per iteration, t-fold fewer messages
+    assert (multi["workload"], multi["impl"], multi["t_steps"]) == (
+        "stencil2d-dist", "multi", 2)
 
 
 DRIVER = [
@@ -399,6 +534,34 @@ def test_driver_dump_equals_jax_driver(tmp_path, dim, size, mesh, impl, pack,
                                   np.load(tmp_path / "a.npy"))
     assert rec["workload"] == f"stencil{dim}d-dist" and rec["verified"]
     assert (rec["impl"], rec["pack"], rec["mesh"]) == (impl, pack, list(mesh))
+
+
+@pytest.mark.parametrize("points,size,mesh,bc", [
+    (0, 256, (2, 2), "periodic"),
+    (27, 32, (2, 2, 1), "dirichlet"),
+])
+def test_multi_driver_dump_equals_jax_driver(tmp_path, points, size, mesh,
+                                             bc):
+    """``--impl multi --t-steps 2 --iters 4`` through both drivers from
+    one ``--load`` file: bitwise dumps, the port's row verified (its
+    verify iterations rounded up to a multiple of t)."""
+    dim = len(mesh)
+    load = tmp_path / "u0.npy"
+    np.save(load, cases.field((size,) * dim, 130 + dim))
+    common = dict(dim=dim, points=points, size=size, iters=4, t_steps=2,
+                  bc=bc, mesh=mesh, load=str(load), warmup=1, reps=1)
+    jstencil.run_distributed_bench(jstencil.StencilConfig(
+        impl="multi", backend="cpu-sim", dump=str(tmp_path / "a.npy"),
+        **common,
+    ))
+    rec = pstencil.run_distributed_bench(pstencil.StencilConfig(
+        impl="multi", backend="cpu", verify=True, verify_iters=3,
+        dump=str(tmp_path / "b.npy"), dist_timeout=240, **common,
+    ))
+    np.testing.assert_array_equal(np.load(tmp_path / "b.npy"),
+                                  np.load(tmp_path / "a.npy"))
+    assert (rec["impl"], rec["t_steps"], rec["mesh"], rec["verified"]) == (
+        "multi", 2, list(mesh), True)
 
 
 def _run_cli(*argv, env=None, timeout=300):
@@ -509,7 +672,8 @@ def test_cli_joins_the_group_a_launcher_gives_it(tmp_path):
     (["--dim", "2", "--size", "64", "--mesh", "4"], "has 1 axes, --dim is 2"),
     (["--dim", "2", "--size", "64", "--mesh", "2,0"], "positive sizes"),
     (["--dim", "2", "--size", "64", "--impl", "torch"],
-     "--impl torch is an arm of a mesh run: pass --mesh"),
+     "--impl torch: the single-device 'torch' arm (JAX 'lax') is not yet "
+     "ported"),
     (["--dim", "3", "--size", "16", "--pack", "kernel"],
      "--pack applies to a 3D mesh run"),
 ])
@@ -531,7 +695,7 @@ def test_library_refuses_what_jax_refuses():
     for kwargs, message in [
         ({"stencil": "27pt"}, "stencil='27pt' needs a 3D mesh, got 2D"),
         ({"halo_wire": "bfloat16"}, "halo_wire is not yet ported"),
-        ({"t_steps": 4}, "t_steps is not yet ported"),
+        ({"halo_width": 2}, "halo_width is not yet ported"),
         ({"rows": 3}, "unknown kwargs"),
     ]:
         with pytest.raises(ValueError, match=message):
@@ -588,8 +752,8 @@ def test_box_library_refuses_what_jax_refuses():
     assert str(port.value) == str(ref.value)
     for cart, impl, kwargs, message in [
         (cart2, "overlap", {"stencil": "5pt"}, "unknown stencil '5pt'"),
-        (cart2, "multi", {"stencil": "9pt"}, "impl 'multi' is not yet "
-         "ported for stencil='9pt'"),
+        (cart2, "pallas-wave", {"stencil": "9pt"}, "impl 'pallas-wave' is "
+         "not yet ported for stencil='9pt'"),
         (cart3, "pallas-wave", {"stencil": "27pt"}, "not yet ported"),
         (cart3, "partitioned", {"stencil": "27pt"},
          "stencil='27pt' supports impl='torch'|'overlap'|'block'|'stream'"),

@@ -28,7 +28,8 @@ def _jax_cfg(**kw):
 
 
 def _port_cfg(**kw):
-    return pstencil.StencilConfig(backend="cpu", warmup=1, reps=1, **kw)
+    return pstencil.StencilConfig(**{"backend": "cpu", "warmup": 1,
+                                     "reps": 1, **kw})
 
 
 @pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
@@ -87,8 +88,11 @@ def test_sub_fp32_driver_verifies_against_golden(tmp_path, dtype, bc):
 def test_row_passes_the_jax_row_schema(tmp_path):
     path = tmp_path / "rows.jsonl"
     for tol in (None, 0.5):
+        # several reps: the slope of two single samples of so short a loop
+        # can come out non-positive on a busy machine, and the rate then
+        # null
         pstencil.run_single_device(_port_cfg(
-            dim=1, size=4096, iters=4, tol=tol, jsonl=str(path)
+            dim=1, size=4096, iters=4, tol=tol, jsonl=str(path), reps=7
         ))
     rows = [json.loads(line) for line in path.read_text().splitlines()]
     assert [r["workload"] for r in rows] == ["stencil1d", "stencil1d-conv"]
@@ -126,27 +130,55 @@ def test_cli_default_backend_is_cuda_and_refuses_without_card(capsys):
 
 #: what the CLI answers to each arm name it does not run on one device
 REFUSED_IMPLS = {
-    "lax": "the JAX package's name; the port calls this arm 'torch'",
+    "lax": "the single-device 'torch' arm (JAX 'lax') is not yet ported; "
+           "see ROADMAP.md",
+    "torch": "the single-device 'torch' arm (JAX 'lax') is not yet "
+             "ported; see ROADMAP.md",
     "pallas": "the JAX package's name; the port calls this arm 'block'",
     "pallas-stream": "the JAX package's name; the port calls this arm "
                      "'stream'",
     "pallas-grid": "not yet ported; see ROADMAP.md",
     "pallas-wave": "not yet ported; see ROADMAP.md",
-    "pallas-multi": "not yet ported; see ROADMAP.md",
+    "pallas-multi": "the JAX package's name; the port calls this arm "
+                    "'multi'",
+    "partitioned": "not yet ported; see ROADMAP.md",
     "overlap": "is an arm of a mesh run: pass --mesh",
 }
 
 
-@pytest.mark.parametrize("impl", ["lax", "pallas", "pallas-grid",
+@pytest.mark.parametrize("impl", ["lax", "torch", "pallas", "pallas-grid",
                                   "pallas-stream", "pallas-wave",
-                                  "pallas-multi", "overlap"])
+                                  "pallas-multi", "partitioned", "overlap"])
 def test_cli_refuses_unported_impls(capsys, impl):
     """An arm the port has under another name is answered with that name,
-    a mesh arm with ``--mesh``, the rest with the roadmap."""
+    a mesh arm with ``--mesh``, the rest with the roadmap; JAX's
+    single-device ``lax`` arm, by either name, is not yet ported (the
+    port's ``torch`` arm runs on a mesh only)."""
     rc = cli.main(["stencil", "--backend", "cpu", "--dim", "1", "--size",
                    "1024", "--iters", "2", "--impl", impl])
     assert rc == 2
     assert REFUSED_IMPLS[impl] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("impl", ["lax", "torch"])
+def test_single_device_torch_arm_is_refused_by_both_names(capsys, impl):
+    """JAX's single-device ``lax`` arm has no port yet: neither name points
+    one device to an arm it then refuses. On a mesh ``lax`` still answers
+    with the port's name and ``torch`` runs."""
+    argv = ["stencil", "--backend", "cpu", "--dim", "2", "--size", "64",
+            "--iters", "2", "--impl", impl]
+    assert cli.main(argv) == 2
+    err = capsys.readouterr().err
+    assert "the single-device 'torch' arm (JAX 'lax') is not yet ported" \
+        in err and "calls this arm" not in err
+    cfg = pstencil.StencilConfig(dim=2, size=64, iters=2, impl=impl,
+                                 mesh=(2, 2), backend="cpu")
+    if impl == "lax":
+        with pytest.raises(ValueError, match="the port calls this arm "
+                                             "'torch'"):
+            pstencil._validate_distributed(cfg)
+    else:
+        assert pstencil._validate_distributed(cfg).impl == "torch"
 
 
 @pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
@@ -173,7 +205,7 @@ def test_block_arm_driver_dump_matches_jax_pallas_arm(tmp_path, dim, bc):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--halo-parts", "2"], ["--t-steps", "4"], ["--fuse-steps", "2"],
+    ["--halo-parts", "2"], ["--profile", "trace"], ["--fuse-steps", "2"],
     ["--halo-width", "2"], ["--halo-wire", "bfloat16"],
     ["--dimsem", "parallel"], ["--backend", "cpu-sim"],
 ])

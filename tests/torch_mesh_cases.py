@@ -45,11 +45,13 @@ def _np(x):
 
 def case_run(p):
     """``run_distributed`` gathered: the global field on rank 0 (the star,
-    or the box stencil ``p["stencil"]``)."""
+    or the box stencil ``p["stencil"]``; ``t_steps`` for ``multi``)."""
     cart, dec, block = _setup(p)
+    extra = {"t_steps": p["t_steps"]} if "t_steps" in p else {}
     out = pdist.run_distributed(
         block, dec, p["iters"], bc=p["bc"], impl=p["impl"],
         pack=p.get("pack", "fused"), stencil=p.get("stencil", "star"),
+        **extra,
     )
     return dec.gather(out)
 

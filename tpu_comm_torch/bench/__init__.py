@@ -21,11 +21,14 @@ name: it names no Pallas kernel):
     overlap       overlap   interior/boundary split in plain PyTorch (mesh)
     pallas        block     csrc/jacobi_block.cu (mesh and one device)
     pallas-stream stream    csrc/jacobi_stream.cu (mesh and one device)
+    pallas-multi  multi     csrc/multi.cu, t steps a pass (one device)
+    multi         multi     width-t ghosts, t steps an exchange (mesh)
     --pack fused  fused     slice copies of the faces
     --pack pallas kernel    csrc/pack.cu pack_faces_kernel (3D mesh)
 
-A JAX name is refused with an error that names the port's arm; there are
-no aliases.
+In both modes ``multi`` means t steps per pass (one device) or per
+exchange (mesh). A JAX name is refused with an error that names the
+port's arm; there are no aliases.
 """
 
 MEMBW_OPS = ("copy", "scale", "add", "triad")
@@ -44,6 +47,7 @@ JAX_STENCIL_IMPLS = {
     "lax": "torch",
     "pallas": "block",
     "pallas-stream": "stream",
+    "pallas-multi": "multi",
 }
 #: the JAX package's ``--pack`` name -> the port's
 JAX_STENCIL_PACKS = {"pallas": "kernel"}

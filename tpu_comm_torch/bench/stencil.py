@@ -6,13 +6,16 @@ Parse a config, initialise the field (or ``--load`` it), optionally
 check the kernels against the serial NumPy golden, time the relaxation
 loop by slope, and report one JSON row with GB/s and iterations/s. The
 loop is a Python loop of one kernel launch per step (``kernels.run``),
-or with ``--tol`` the convergence loop. ``--points 9`` (2D) and
+with ``--impl multi`` one launch per ``--t-steps`` steps
+(``kernels.run_multi``, temporal blocking), or with ``--tol`` the
+convergence loop. ``--points 9`` (2D) and
 ``--points 27`` (3D) run the box stencils instead of the star, as their
 own workloads (``stencil2d-9pt``, ``stencil3d-27pt``).
 
 With ``--mesh`` the field is decomposed over a Cartesian mesh of ranks,
 one process each (``comm/launch.py`` starts them), and every step
-exchanges ghost cells (``kernels/distributed.py``). Every rank builds
+exchanges ghost cells (``kernels/distributed.py``); ``--impl multi``
+exchanges width-``t_steps`` ghosts once per ``t_steps`` steps. Every rank builds
 the same initial field and takes its own block; rank 0 gathers the
 field, checks it and writes the one row, and its verdict is broadcast
 so that every rank fails together.
@@ -50,17 +53,16 @@ from tpu_comm_torch.kernels.tiling import (
 
 #: default global points per dimension (the JAX driver's defaults)
 DEFAULT_SIZES = {1: 1 << 20, 2: 4096, 3: 256}
-#: the single-device arms; ``auto`` resolves to ``stream``. (On the TPU
-#: the JAX driver's ``auto`` for ``--points 27`` under dirichlet picks
-#: ``pallas-wave``; the port follows once that kernel is ported.)
-IMPLS = ("stream", "block")
+#: the single-device arms; ``auto`` resolves to ``stream`` (as JAX's,
+#: which never picks ``pallas-multi``). (On the TPU the JAX driver's
+#: ``auto`` for ``--points 27`` under dirichlet picks ``pallas-wave``; the
+#: port follows once that kernel is ported.)
+IMPLS = ("stream", "block", "multi")
 #: the arms of a mesh run; ``auto`` resolves to ``overlap``
-DIST_IMPLS = ("torch", "overlap", "block", "stream")
+DIST_IMPLS = ("torch", "overlap", "block", "stream", "multi")
 #: the JAX driver's other arms, refused until a later slice ports them
-UNPORTED_IMPLS = (
-    "pallas-grid", "pallas-stream2", "pallas-wave", "pallas-multi",
-    "partitioned", "multi",
-)
+UNPORTED_IMPLS = ("pallas-grid", "pallas-stream2", "pallas-wave",
+                  "partitioned")
 
 
 @dataclass
@@ -75,9 +77,13 @@ class StencilConfig:
     # "auto" resolves to "stream" on one device, "overlap" on a mesh
     impl: str = "auto"
     # rows per CUDA block (1D: rows of 128 elements; 2D: rows of a
-    # 32-column strip) or z-planes per block (3D); None = the kernel's
-    # default. It sets the launch grid, never the result.
+    # 32-column strip, or of the multi arm's tile) or z-planes per block
+    # (3D); None = the kernel's default. It sets the launch grid, never
+    # the result.
     chunk: int | None = None
+    # iterations fused per pass (one device) or per exchange (mesh) of
+    # --impl multi; iters must be a multiple of this
+    t_steps: int = 8
     # ranks per mesh axis; None = one device, no process group
     mesh: tuple[int, ...] | None = None
     # ghost pack of a 3D mesh run: "fused" (slice copies) or "kernel"
@@ -117,6 +123,14 @@ def resolve_impl(impl: str, distributed: bool = False) -> str:
         return "overlap" if distributed else "stream"
     if impl in impls:
         return impl
+    if not distributed and JAX_STENCIL_IMPLS.get(impl, impl) == "torch":
+        # JAX's single-device lax arm: the port's torch arm runs on a mesh
+        # only so far
+        raise ValueError(
+            f"--impl {impl}: the single-device 'torch' arm (JAX 'lax') is "
+            f"not yet ported; see ROADMAP.md (ported on one device: "
+            f"{', '.join(('auto',) + IMPLS)})"
+        )
     if impl in JAX_STENCIL_IMPLS:
         raise ValueError(
             f"--impl {impl} is the JAX package's name; the port calls this "
@@ -199,6 +213,8 @@ def _validate(cfg: StencilConfig) -> StencilConfig:
         raise ValueError(f"--size must be >= 3, got {cfg.size}")
     if cfg.iters < 1:
         raise ValueError(f"--iters must be >= 1, got {cfg.iters}")
+    if cfg.t_steps < 1:
+        raise ValueError(f"--t-steps must be >= 1, got {cfg.t_steps}")
     if cfg.chunk is not None and cfg.chunk < 1:
         raise ValueError(f"--chunk must be >= 1, got {cfg.chunk}")
     reference.check_bc(cfg.bc)
@@ -206,7 +222,29 @@ def _validate(cfg: StencilConfig) -> StencilConfig:
     cfg = dataclasses.replace(
         cfg, impl=resolve_impl(cfg.impl, distributed=cfg.mesh is not None)
     )
+    if cfg.impl == "multi":
+        if cfg.iters % cfg.t_steps != 0:
+            raise ValueError(
+                f"--iters ({cfg.iters}) must be a multiple of --t-steps "
+                f"({cfg.t_steps}) for --impl multi"
+            )
+        if cfg.tol is not None:
+            raise ValueError(
+                "--tol convergence mode and --impl multi are exclusive "
+                "(the residual check needs per-step granularity)"
+            )
     if cfg.mesh is None:
+        kernels = kernels_for(cfg.dim, cfg.points)
+        if cfg.impl == "multi" and not hasattr(kernels, "run_multi"):
+            if cfg.points:
+                raise ValueError(
+                    f"--impl multi is not available for --points "
+                    f"{cfg.points} (choices: {kernels.IMPLS})"
+                )
+            raise ValueError(
+                f"--impl multi in {cfg.dim}D (the wavefront temporal "
+                f"blocking) is not yet ported; see ROADMAP.md"
+            )
         if cfg.pack != "fused":
             raise ValueError("--pack applies to a 3D mesh run: pass --mesh")
         if cfg.impl == "block" and cfg.chunk is not None:
@@ -278,6 +316,12 @@ def _slope_fields(cfg: StencilConfig, per_iter: float, t_lo, traffic: int,
     }
 
 
+def _round_up(v: int, m: int) -> int:
+    """Smallest multiple of ``m`` >= ``v`` (a ``multi`` run advances in
+    strides of ``t_steps``)."""
+    return v + (-v) % m
+
+
 def run_single_device(cfg: StencilConfig) -> dict:
     """Single-device stencil benchmark; returns (and with ``jsonl``
     appends) the result row."""
@@ -293,13 +337,16 @@ def run_single_device(cfg: StencilConfig) -> dict:
     # the golden starts from the field as the device holds it (a bf16
     # field is rounded on its way there)
     u0 = to_numpy_field(u_dev)
+    multi = cfg.impl == "multi"
     key = "planes_per_chunk" if cfg.dim == 3 else "rows_per_chunk"
     if cfg.impl == "block":
         # the block kernels take no chunk, and their rows carry none
         kwargs, chunk_fields = {}, {}
     else:
         if cfg.chunk is None:
-            chunk = kernels.default_chunk(cfg.global_shape)
+            default = (kernels.default_multi_chunk if multi
+                       else kernels.default_chunk)
+            chunk = default(cfg.global_shape)
             chunk_source = "auto"
         else:
             chunk, chunk_source = cfg.chunk, "user"
@@ -312,6 +359,7 @@ def run_single_device(cfg: StencilConfig) -> dict:
         "mesh": [1],
         "impl": cfg.impl,
         **chunk_fields,
+        **({"t_steps": cfg.t_steps} if multi else {}),
         "bc": cfg.bc,
         "dtype": cfg.dtype,
         "size": list(cfg.global_shape),
@@ -340,15 +388,21 @@ def run_single_device(cfg: StencilConfig) -> dict:
             emit_jsonl(record, cfg.jsonl)
         return record
 
-    def run_iters(k: int):
-        return kernels.run(u_dev, k, bc=cfg.bc, impl=cfg.impl, **kwargs)
+    if multi:
+        def run_iters(k: int):
+            return kernels.run_multi(u_dev, k, bc=cfg.bc,
+                                     t_steps=cfg.t_steps, **kwargs)
+    else:
+        def run_iters(k: int):
+            return kernels.run(u_dev, k, bc=cfg.bc, impl=cfg.impl, **kwargs)
 
     if cfg.verify:
-        got = to_numpy_field(run_iters(cfg.verify_iters))
+        v_iters = (_round_up(cfg.verify_iters, cfg.t_steps) if multi
+                   else cfg.verify_iters)
+        got = to_numpy_field(run_iters(v_iters))
         check_against_golden(
-            got, reference.GOLDEN_RUNS[cfg.points](
-                u0, cfg.verify_iters, bc=cfg.bc),
-            cfg.dtype, iters=cfg.verify_iters,
+            got, reference.GOLDEN_RUNS[cfg.points](u0, v_iters, bc=cfg.bc),
+            cfg.dtype, iters=v_iters,
         )
     per_iter, t_lo, _ = time_loop_per_iter(
         run_iters, cfg.iters, warmup=cfg.warmup, reps=cfg.reps
@@ -390,9 +444,16 @@ def _validate_distributed(cfg: StencilConfig) -> StencilConfig:
                           world=math.prod(mesh), rank=0)
     Decomposition(cart, cfg.global_shape)  # divisibility
     # arm x pack x stencil
-    make_local_step(cart, cfg.bc, cfg.impl, pack=cfg.pack,
-                    stencil=stencil_name(cfg.points))
+    make_local_step(cart, cfg.bc, cfg.impl, **_dist_kwargs(cfg))
     return dataclasses.replace(cfg, mesh=mesh)
+
+
+def _dist_kwargs(cfg: StencilConfig) -> dict:
+    """The distributed step's options of a mesh run."""
+    kwargs = {"pack": cfg.pack, "stencil": stencil_name(cfg.points)}
+    if cfg.impl == "multi":
+        kwargs["t_steps"] = cfg.t_steps
+    return kwargs
 
 
 def _collective_verdict(check, device) -> None:
@@ -443,8 +504,12 @@ def run_rank(cfg: StencilConfig) -> dict | None:
     # field is rounded on its way there)
     u0 = to_numpy_field(from_numpy_field(u_host, "cpu", dtype)) if root \
         else None
-    kwargs = {"pack": cfg.pack, "stencil": stencil_name(cfg.points)}
+    kwargs = _dist_kwargs(cfg)
+    multi = cfg.impl == "multi"
     traffic = stencil_bytes_per_iter(dec.local_shape, u_dev.element_size())
+    # the width-1 model for every arm, multi too (as the JAX driver's
+    # rows): a width-t exchange every t steps sends the same bytes per
+    # iteration in t-fold fewer messages
     halo_traffic = halo_bytes_per_iter(
         dec.local_shape, cart, u_dev.element_size()
     )
@@ -454,6 +519,7 @@ def run_rank(cfg: StencilConfig) -> dict | None:
         "mesh": list(cart.shape),
         "topo_plan": cart.plan_id,
         "impl": cfg.impl,
+        **({"t_steps": cfg.t_steps} if multi else {}),
         "pack": cfg.pack,
         "bc": cfg.bc,
         "dtype": cfg.dtype,
@@ -508,12 +574,14 @@ def run_rank(cfg: StencilConfig) -> dict | None:
         )
 
     if cfg.verify:
-        got = dec.gather(sync(run_iters(cfg.verify_iters)))
+        v_iters = (_round_up(cfg.verify_iters, cfg.t_steps) if multi
+                   else cfg.verify_iters)
+        got = dec.gather(sync(run_iters(v_iters)))
         _collective_verdict(
             lambda: check_against_golden(
-                got, reference.GOLDEN_RUNS[cfg.points](
-                    u0, cfg.verify_iters, bc=cfg.bc),
-                cfg.dtype, iters=cfg.verify_iters,
+                got, reference.GOLDEN_RUNS[cfg.points](u0, v_iters,
+                                                       bc=cfg.bc),
+                cfg.dtype, iters=v_iters,
             ),
             device,
         )

@@ -11,7 +11,7 @@
 - ``info``    — torch and CUDA versions and the device a backend gives.
 
 Flags of the JAX CLI that the port does not have (``--fuse-steps``,
-``--halo-*``, ``--t-steps``, ...) are not accepted;
+``--halo-*``, ...) are not accepted;
 ``membw --dimsem`` is refused with its reason. Errors print
 ``error: ...`` and exit 2.
 """
@@ -67,6 +67,7 @@ def _cmd_stencil(args) -> int:
             bc=args.bc,
             impl=args.impl,
             chunk=args.chunk,
+            t_steps=args.t_steps,
             mesh=args.mesh,
             pack=args.pack,
             dist_timeout=args.dist_timeout,
@@ -203,8 +204,14 @@ def build_parser() -> argparse.ArgumentParser:
     p_st.add_argument(
         "--chunk", type=int, default=None,
         help="rows per CUDA block (1D: rows of 128 elements; 2D: rows of "
-        "a 32-column strip) or z-planes per block (3D); default: the "
-        "kernel's own. Sets the launch grid, never the result",
+        "a 32-column strip, or of the 64-column tile of --impl multi) or "
+        "z-planes per block (3D); default: the kernel's own. Sets the "
+        "launch grid, never the result",
+    )
+    p_st.add_argument(
+        "--t-steps", type=int, default=8,
+        help="iterations fused per HBM pass for --impl multi; "
+        "--iters must be a multiple",
     )
     p_st.add_argument(
         "--dtype", choices=["float32", "bfloat16", "float16"],
@@ -219,17 +226,21 @@ def build_parser() -> argparse.ArgumentParser:
         "9 = the 2D box stencil (--dim 2; reads corner neighbors), "
         "27 = the 3D box stencil (--dim 3; reads edge AND corner "
         "neighbors). On a mesh, the workloads that consume the transitive "
-        "corner ghosts. Arms: 'stream' and 'block' on one device; "
-        "'torch', 'overlap', 'block' and 'stream' on a mesh",
+        "corner ghosts. Arms: 'stream' and 'block' on one device, and "
+        "'multi' for --points 9; 'torch', 'overlap', 'block', 'stream' and "
+        "'multi' on a mesh",
     )
     p_st.add_argument(
         "--impl", default="auto",
         help="local update. One device: 'stream' (the chunked CUDA kernel; "
-        "JAX 'pallas-stream'; what 'auto' picks) or 'block' (the "
-        "whole-field CUDA kernel; JAX 'pallas'). With --mesh also 'torch' "
-        "(plain PyTorch on the ghost-padded block; JAX 'lax') and "
-        "'overlap' (interior/boundary split in plain PyTorch; what 'auto' "
-        "picks there). On the CPU a kernel arm runs its plain PyTorch "
+        "JAX 'pallas-stream'; what 'auto' picks), 'block' (the "
+        "whole-field CUDA kernel; JAX 'pallas') or 'multi' (--t-steps "
+        "steps a pass by temporal blocking, 1D, 2D and --points 9; JAX "
+        "'pallas-multi'). With --mesh 'block', 'stream', 'torch' (plain "
+        "PyTorch on the ghost-padded block; JAX 'lax'), 'overlap' "
+        "(interior/boundary split in plain PyTorch; what 'auto' picks "
+        "there) and 'multi' (one width-t ghost exchange, then t steps in "
+        "plain PyTorch). On the CPU a kernel arm runs its plain PyTorch "
         "version. The JAX package's other arms are not yet ported (see "
         "ROADMAP.md)",
     )

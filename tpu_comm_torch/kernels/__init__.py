@@ -9,6 +9,13 @@ from __future__ import annotations
 
 import torch
 
+from tpu_comm_torch.kernels.reference import check_bc
+from tpu_comm_torch.kernels.tiling import (
+    check_t_steps,
+    f32_compute,
+    narrow_store,
+)
+
 #: the box stencils: the distributed step's ``stencil`` name (the JAX
 #: ``make_local_step``'s) -> (field dim, ``--points``); the one table
 #: that links the two spellings
@@ -38,6 +45,34 @@ def run_steps(step, u0: torch.Tensor, iters: int, bc: str,
     for i in range(iters):
         src = step(src, bc=bc, out=bufs[i % 2], **kwargs)
     return src
+
+
+def run_steps_multi(step_multi, u0: torch.Tensor, iters: int, bc: str,
+                    t_steps: int, **kwargs) -> torch.Tensor:
+    """Iterate a temporal-blocking ``step_multi``: each call advances
+    ``t_steps`` iterations, so the loop runs ``iters // t_steps`` fused
+    passes over :func:`run_steps`' two buffers. ``iters`` must be a
+    multiple of ``t_steps``."""
+    check_t_steps(t_steps)
+    if iters % t_steps != 0:
+        raise ValueError(
+            f"iters={iters} must be a multiple of t_steps={t_steps}"
+        )
+    return run_steps(step_multi, u0, iters // t_steps, bc, t_steps=t_steps,
+                     **kwargs)
+
+
+def multi_plain(step_f32, u: torch.Tensor, bc: str, t_steps: int,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """``t_steps`` applications of ``step_f32(a, bc)`` (one unrounded
+    float32 step) to ``u`` widened to f32, then one RTNE narrowing (into
+    ``out`` when given): the plain version of every multi kernel."""
+    check_bc(bc)
+    check_t_steps(t_steps)
+    a = f32_compute(u)
+    for _ in range(t_steps):
+        a = step_f32(a, bc)
+    return narrow_store(a, u.dtype, out)
 
 
 def run_steps_to_convergence(
@@ -75,9 +110,10 @@ def run_steps_to_convergence(
 
 def kernels_for(dim: int, points: int = 0):
     """Kernel module of a stencil (step_plain / step_stream / step_block /
-    run): the star of ``dim`` for ``points`` 0, the 2D 9-point or 3D
-    27-point box otherwise (the JAX driver's ``_kernels_for``, with its
-    messages)."""
+    run, and where the family has temporal blocking step_multi_plain /
+    step_multi / run_multi): the star of ``dim`` for ``points`` 0, the 2D
+    9-point or 3D 27-point box otherwise (the JAX driver's
+    ``_kernels_for``, with its messages)."""
     if points == 0:
         if dim == 1:
             from tpu_comm_torch.kernels import jacobi1d as mod

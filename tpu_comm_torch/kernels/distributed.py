@@ -20,6 +20,12 @@ Local-update arms (``IMPLS``; the JAX names in brackets):
   block-periodic step on the raw block, then the faces are recomputed.
 - ``stream`` [pallas-stream] — the same with the chunked stream kernel
   (``step_stream``, ``csrc/jacobi_stream.cu``).
+- ``multi`` [multi] — communication-avoiding stepping: one chained
+  exchange of width-``t_steps`` ghosts (``halo.pad_halo``), then
+  ``t_steps`` updates of the padded block in plain PyTorch in the
+  field's dtype (:func:`multi_local_step`); one call of the step
+  advances ``t_steps`` iterations. JAX's arm has no Pallas kernel
+  either: its in-block steps are lax-level, and so are these.
 
 ``pack="kernel"`` (3D mesh; overlap, block, stream) routes the exchange
 through the face-pack kernel (``kernels/pack.py``) instead of slice
@@ -58,13 +64,13 @@ from tpu_comm_torch.domain import Decomposition
 from tpu_comm_torch.kernels import BOX, kernels_for
 from tpu_comm_torch.kernels.pack import PACK_IMPLS
 from tpu_comm_torch.kernels.reference import check_bc
+from tpu_comm_torch.kernels.tiling import check_t_steps
 from tpu_comm_torch.topo import CartMesh
 
 #: the port's local-update arms
-IMPLS = ("torch", "overlap", "block", "stream")
+IMPLS = ("torch", "overlap", "block", "stream", "multi")
 #: options of the JAX ``make_local_step`` that wait for a later slice
-UNPORTED_OPTIONS = ("halo_wire", "halo_parts", "halo_width", "t_steps",
-                    "fuse_steps")
+UNPORTED_OPTIONS = ("halo_wire", "halo_parts", "halo_width", "fuse_steps")
 
 
 def _rounded(x: float, dtype: torch.dtype) -> float:
@@ -154,17 +160,28 @@ FROM_PADDED = {"star": stencil_from_padded, "9pt": stencil9_from_padded,
                "27pt": stencil27_from_padded}
 
 
+def ring_planes(cart: CartMesh, shape, t: int = 0):
+    """The (axis, index) planes of the GLOBAL boundary ring inside a
+    width-``t`` ghost-padded block of ``shape`` on this rank: for a rank
+    at the mesh edge along an axis, padded index ``t`` (low) or
+    ``shape[a]-1-t`` (high)."""
+    planes = []
+    for a, (coord, npart) in enumerate(zip(cart.coords, cart.shape)):
+        if coord == 0:
+            planes.append((a, t))
+        if coord == npart - 1:
+            planes.append((a, shape[a] - 1 - t))
+    return planes
+
+
 def ring_mask_padded(shape, cart: CartMesh, t: int = 0) -> torch.Tensor:
     """Boolean mask of the GLOBAL boundary ring inside a width-``t``
     ghost-padded block of ``shape`` on this rank: for a rank at the mesh
     edge along an axis, the plane at padded index ``t`` (low) or
     ``shape[a]-1-t`` (high), full width in every other axis."""
     mask = torch.zeros(tuple(shape), dtype=torch.bool)
-    for a, (coord, npart) in enumerate(zip(cart.coords, cart.shape)):
-        if coord == 0:
-            mask.narrow(a, t, 1).fill_(True)
-        if coord == npart - 1:
-            mask.narrow(a, shape[a] - 1 - t, 1).fill_(True)
+    for a, i in ring_planes(cart, shape, t):
+        mask.narrow(a, i, 1).fill_(True)
     return mask
 
 
@@ -175,12 +192,8 @@ def dirichlet_freeze(new: torch.Tensor, block: torch.Tensor,
     done as one face copy per face on the global boundary. Frozen cells
     never change, so copying from the current block keeps the initial
     boundary values."""
-    for a, (coord, npart) in enumerate(zip(cart.coords, cart.shape)):
-        n = new.shape[a]
-        if coord == 0:
-            new.narrow(a, 0, 1).copy_(block.narrow(a, 0, 1))
-        if coord == npart - 1:
-            new.narrow(a, n - 1, 1).copy_(block.narrow(a, n - 1, 1))
+    for a, i in ring_planes(cart, new.shape):
+        new.narrow(a, i, 1).copy_(block.narrow(a, i, 1))
     return new
 
 
@@ -277,6 +290,50 @@ def _interior_update(block: torch.Tensor, out: torch.Tensor | None,
     return new
 
 
+def multi_local_step(cart: CartMesh, bc: str, t: int, from_padded):
+    """The ``multi`` step: ``local_step(block, out=None)`` advances the
+    block ``t`` iterations behind ONE exchange of width-``t`` ghosts
+    (JAX's ``_multi_local_step``, for the star and the box stencils).
+
+    ``halo.pad_halo``'s chained exchange fills every corner and edge
+    region the t-step cone reads. Each step updates the padded block's
+    core from the last one (``from_padded``, in the field's dtype) into
+    the other of two padded buffers and zeroes its outer one-cell rim,
+    as JAX's ``jnp.pad(core, 1)``: the rim's junk moves in one cell a
+    step and never reaches the centre. Under dirichlet the global ring
+    planes (padded index ``t`` and ``shape - 1 - t`` on an edge rank) are
+    restored every step from the first padded block, plane by plane
+    (JAX's ``_ring_mask_padded`` where): a barrier for the open edge's
+    junk too. Returns the centre.
+    """
+    check_t_steps(t)
+
+    def local_step(block, out=None):
+        if any(s < t for s in block.shape):
+            raise ValueError(
+                f"local block {tuple(block.shape)} smaller than halo width "
+                f"t_steps={t}; use fewer devices or smaller t_steps"
+            )
+        p = halo.pad_halo(block, cart, width=t)
+        planes = ring_planes(cart, p.shape, t) if bc == "dirichlet" else []
+        # the ring's first values, kept before p is written over
+        frozen = [(a, i, p.narrow(a, i, 1).clone()) for a, i in planes]
+        bufs = (p, torch.empty_like(p))
+        core = tuple(slice(1, -1) for _ in range(p.dim()))
+        for k in range(t):
+            src, dst = bufs[k % 2], bufs[(k + 1) % 2]
+            from_padded(src, out=dst[core])
+            for a in range(dst.dim()):
+                dst.narrow(a, 0, 1).zero_()
+                dst.narrow(a, dst.shape[a] - 1, 1).zero_()
+            for a, i, plane in frozen:
+                dst.narrow(a, i, 1).copy_(plane)
+        center = bufs[t % 2][tuple(slice(t, -t) for _ in range(p.dim()))]
+        return center.clone() if out is None else out.copy_(center)
+
+    return local_step
+
+
 def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
                     pack: str = "fused", **kwargs):
     """Build the per-iteration function ``local_step(block, out=None)``
@@ -319,7 +376,7 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
             raise ValueError(
                 f"stencil={stencil!r} needs a {want_nd}D mesh, got {nd}D"
             )
-        if impl in ("multi", "pallas-wave"):
+        if impl == "pallas-wave":
             raise ValueError(
                 f"impl {impl!r} is not yet ported for stencil={stencil!r}; "
                 f"see ROADMAP.md"
@@ -341,9 +398,13 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
     for name in UNPORTED_OPTIONS:
         if kwargs.pop(name, None) is not None:
             raise ValueError(f"{name} is not yet ported; see ROADMAP.md")
+    t = kwargs.pop("t_steps", 8) if impl == "multi" else None
     if kwargs:
         raise ValueError(f"unknown kwargs for impl={impl!r}: {sorted(kwargs)}")
     from_padded = FROM_PADDED[stencil]
+
+    if impl == "multi":
+        return multi_local_step(cart, bc, t, from_padded)
 
     if impl == "torch":
 
@@ -384,7 +445,7 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
 
         def update(block, out):
             return kernel(block, bc="periodic", out=out)
-    elif impl in ("partitioned", "multi", "pallas-wave"):
+    elif impl in ("partitioned", "pallas-wave"):
         raise ValueError(f"impl {impl!r} is not yet ported; see ROADMAP.md")
     else:
         raise ValueError(f"unknown distributed impl {impl!r}")
@@ -417,10 +478,21 @@ def run_distributed(block: torch.Tensor, dec: Decomposition, iters: int,
                     **kwargs) -> torch.Tensor:
     """Run ``iters`` distributed Jacobi steps on this rank's block of the
     decomposed field; returns the rank's new block. Ping-pong over two
-    buffers allocated once per call; ``block`` itself is only read."""
+    buffers allocated once per call; ``block`` itself is only read.
+    ``impl="multi"`` advances ``t_steps`` iterations a step, so ``iters``
+    must be a multiple of it."""
     _check_block(block, dec)
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
+    if impl == "multi":
+        t = kwargs.get("t_steps", 8)
+        check_t_steps(t)
+        if iters % t != 0:
+            raise ValueError(
+                f"iters={iters} must be a multiple of t_steps={t} for "
+                f"impl='multi'"
+            )
+        iters //= t
     step = make_local_step(dec.cart, bc, impl, **kwargs)
     if iters == 0:
         return block.clone()

@@ -1,8 +1,10 @@
 """1D 3-point Jacobi step: plain PyTorch version + hand-written CUDA kernel.
 
 Port of ``tpu_comm/kernels/jacobi1d.py``'s ``pallas-stream`` arm
-(``step_pallas_stream`` and its kernel ``_jacobi1d_stream_kernel``) and
-``pallas`` arm (``step_pallas`` and its kernel ``_jacobi1d_kernel``).
+(``step_pallas_stream`` and its kernel ``_jacobi1d_stream_kernel``),
+``pallas`` arm (``step_pallas`` and its kernel ``_jacobi1d_kernel``) and
+``pallas-multi`` arm (``step_pallas_multi``, its kernel
+``_jacobi1d_multi_kernel`` and its edge fix ``_edge_cone_fix_multi``).
 
 Update rule (Jacobi, ping-pong):  u'[i] = (u[i-1] + u[i+1]) / 2
 Boundary: ``dirichlet`` freezes u[0] and u[N-1]; ``periodic`` wraps.
@@ -17,17 +19,28 @@ Boundary: ``dirichlet`` freezes u[0] and u[N-1]; ``periodic`` wraps.
   ``csrc/jacobi_block.cu``, the port of the TPU's whole-field kernel:
   the same function by another design (see the source). It is the
   distributed step's ``block`` local update and a single-device arm.
+- ``step_multi_plain`` — ``t_steps`` steps of ``step_plain``'s f32
+  arithmetic, the dirichlet ends kept every step, narrowed once.
+- ``step_multi``  — the wrapper of ``jacobi1d_multi_kernel`` in
+  ``csrc/multi.cu`` (temporal blocking: ``t_steps`` steps in one pass);
+  the single-device ``multi`` arm, through :func:`run_multi`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpu_comm_torch.kernels import run_steps, run_steps_to_convergence
+from tpu_comm_torch.kernels import (
+    multi_plain,
+    run_steps,
+    run_steps_multi,
+    run_steps_to_convergence,
+)
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
     check_kernel_args,
     f32_compute,
+    launch_multi,
     launch_stencil,
     narrow_store,
 )
@@ -38,21 +51,45 @@ from tpu_comm_torch.kernels.tiling import (
 STREAM_DEFAULT_ROWS = 8
 
 
+#: output elements a CUDA block of the multi kernel owns, in rows of 128
+#: (4096 elements) when the caller passes none; it sets the grid, never
+#: the result
+MULTI_DEFAULT_ROWS = 32
+
+
 def default_chunk(shape: tuple) -> int:
     """The chunk ``step_stream`` uses when the caller passes none."""
     del shape
     return STREAM_DEFAULT_ROWS
 
 
+def default_multi_chunk(shape: tuple) -> int:
+    """The chunk ``step_multi`` uses when the caller passes none."""
+    del shape
+    return MULTI_DEFAULT_ROWS
+
+
+def _step_f32(a: torch.Tensor, bc: str) -> torch.Tensor:
+    """One step of a float32 field, unrounded."""
+    new = (torch.roll(a, 1) + torch.roll(a, -1)) * 0.5
+    if bc == "dirichlet":
+        new[0], new[-1] = a[0], a[-1]
+    return new
+
+
 def step_plain(u: torch.Tensor, bc: str = "dirichlet",
                out: torch.Tensor | None = None) -> torch.Tensor:
     """One 1D step in plain PyTorch: f32 compute, one RTNE narrowing."""
     check_bc(bc)
-    a = f32_compute(u)
-    new = (torch.roll(a, 1) + torch.roll(a, -1)) * 0.5
-    if bc == "dirichlet":
-        new[0], new[-1] = a[0], a[-1]
-    return narrow_store(new, u.dtype, out)
+    return narrow_store(_step_f32(f32_compute(u), bc), u.dtype, out)
+
+
+def step_multi_plain(u: torch.Tensor, bc: str = "dirichlet",
+                     t_steps: int = 8,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """``t_steps`` 1D steps in plain PyTorch: f32 compute, one RTNE
+    narrowing at the end."""
+    return multi_plain(_step_f32, u, bc, t_steps, out)
 
 
 def step_stream(u: torch.Tensor, bc: str = "dirichlet",
@@ -92,6 +129,31 @@ def step_block(u: torch.Tensor, bc: str = "dirichlet",
 
 step_block.launches = 0
 
+
+def step_multi(u: torch.Tensor, bc: str = "dirichlet", t_steps: int = 8,
+               rows_per_chunk: int | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """``t_steps`` 1D steps in one pass: the CUDA kernel for a CUDA
+    tensor, ``step_multi_plain`` for a CPU tensor. A block owns
+    ``rows_per_chunk`` rows of 128 outputs (default
+    :func:`default_multi_chunk`). Writes into ``out`` (which must not
+    alias ``u``) when given. ``step_multi.launches`` counts kernel
+    launches (more than one a pass beyond ``tiling.MULTI_T_MAX``
+    steps)."""
+    check_bc(bc)
+    if u.device.type == "cpu":
+        return step_multi_plain(u, bc, t_steps, out)
+    out = check_kernel_args(u, 1, out)
+    if rows_per_chunk is None:
+        rows_per_chunk = default_multi_chunk(u.shape)
+    step_multi.launches += launch_multi(
+        "tc_jacobi1d_multi", u, out, bc, t_steps, (rows_per_chunk * 128,)
+    )
+    return out
+
+
+step_multi.launches = 0
+
 STEPS = {"stream": step_stream, "block": step_block}
 IMPLS = tuple(STEPS)
 
@@ -100,6 +162,13 @@ def run(u0: torch.Tensor, iters: int, bc: str = "dirichlet",
         impl: str = "stream", **kwargs) -> torch.Tensor:
     """Iterate the 1D stencil (shared loop in kernels/__init__)."""
     return run_steps(STEPS[impl], u0, iters, bc, **kwargs)
+
+
+def run_multi(u0: torch.Tensor, iters: int, bc: str = "dirichlet",
+              t_steps: int = 8, **kwargs) -> torch.Tensor:
+    """Iterate by temporal blocking, ``iters // t_steps`` passes of
+    :func:`step_multi`; ``iters`` must be a multiple of ``t_steps``."""
+    return run_steps_multi(step_multi, u0, iters, bc, t_steps, **kwargs)
 
 
 def run_to_convergence(u0: torch.Tensor, tol: float, max_iters: int,

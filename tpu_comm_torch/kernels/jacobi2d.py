@@ -1,8 +1,10 @@
 """2D 5-point Jacobi step: plain PyTorch version + hand-written CUDA kernel.
 
 Port of ``tpu_comm/kernels/jacobi2d.py``'s ``pallas-stream`` arm
-(``step_pallas_stream`` and its kernel ``_jacobi2d_stream_kernel``) and
-``pallas`` arm (``step_pallas`` and its kernel ``_jacobi2d_kernel``).
+(``step_pallas_stream`` and its kernel ``_jacobi2d_stream_kernel``),
+``pallas`` arm (``step_pallas`` and its kernel ``_jacobi2d_kernel``) and
+``pallas-multi`` arm (``step_pallas_multi``, its kernel
+``_jacobi2d_multi_kernel`` and its edge fix ``_edge_band_fix_multi_2d``).
 
 Update rule: u'[i,j] = ((u[i-1,j] + u[i+1,j]) + (u[i,j-1] + u[i,j+1])) / 4
 Boundary: ``dirichlet`` freezes the one-cell ring; ``periodic`` wraps.
@@ -16,17 +18,28 @@ Boundary: ``dirichlet`` freezes the one-cell ring; ``periodic`` wraps.
   ``csrc/jacobi_block.cu``, the port of the TPU's whole-field kernel:
   the same function by another design (see the source). It is the
   distributed step's ``block`` local update and a single-device arm.
+- ``step_multi_plain`` — ``t_steps`` steps of ``step_plain``'s f32
+  arithmetic, the dirichlet ring kept every step, narrowed once.
+- ``step_multi``  — the wrapper of ``jacobi2d_multi_kernel`` in
+  ``csrc/multi.cu`` (temporal blocking: ``t_steps`` steps in one pass);
+  the single-device ``multi`` arm, through :func:`run_multi`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpu_comm_torch.kernels import run_steps, run_steps_to_convergence
+from tpu_comm_torch.kernels import (
+    multi_plain,
+    run_steps,
+    run_steps_multi,
+    run_steps_to_convergence,
+)
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
     check_kernel_args,
     f32_compute,
+    launch_multi,
     launch_stencil,
     narrow_store,
 )
@@ -34,6 +47,10 @@ from tpu_comm_torch.kernels.tiling import (
 #: rows of its 32-column strip each CUDA block owns when the caller
 #: passes no chunk; it sets the grid size, never the result
 STREAM_DEFAULT_ROWS = 128
+#: the output tile a CUDA block of the multi kernels (5-point and 9-point)
+#: owns when the caller passes none, rows and columns; it sets the grid,
+#: never the result
+MULTI_DEFAULT_TILE = (64, 64)
 
 
 def default_chunk(shape: tuple) -> int:
@@ -43,19 +60,55 @@ def default_chunk(shape: tuple) -> int:
     return max(STREAM_DEFAULT_ROWS, -(-shape[0] // 65535))
 
 
-def step_plain(u: torch.Tensor, bc: str = "dirichlet",
-               out: torch.Tensor | None = None) -> torch.Tensor:
-    """One 2D step in plain PyTorch: f32 compute, one RTNE narrowing."""
-    check_bc(bc)
-    a = f32_compute(u)
+def default_multi_chunk(shape: tuple) -> int:
+    """The tile rows ``step_multi`` uses when the caller passes none."""
+    del shape
+    return MULTI_DEFAULT_TILE[0]
+
+
+def freeze_ring(new: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The dirichlet ring of ``a`` copied into ``new``, in place."""
+    new[0, :], new[-1, :] = a[0, :], a[-1, :]
+    new[:, 0], new[:, -1] = a[:, 0], a[:, -1]
+    return new
+
+
+def _step_f32(a: torch.Tensor, bc: str) -> torch.Tensor:
+    """One step of a float32 field, unrounded."""
     new = (
         (torch.roll(a, 1, 0) + torch.roll(a, -1, 0))
         + (torch.roll(a, 1, 1) + torch.roll(a, -1, 1))
     ) * 0.25
-    if bc == "dirichlet":
-        new[0, :], new[-1, :] = a[0, :], a[-1, :]
-        new[:, 0], new[:, -1] = a[:, 0], a[:, -1]
-    return narrow_store(new, u.dtype, out)
+    return freeze_ring(new, a) if bc == "dirichlet" else new
+
+
+def step_plain(u: torch.Tensor, bc: str = "dirichlet",
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 2D step in plain PyTorch: f32 compute, one RTNE narrowing."""
+    check_bc(bc)
+    return narrow_store(_step_f32(f32_compute(u), bc), u.dtype, out)
+
+
+def step_multi_plain(u: torch.Tensor, bc: str = "dirichlet",
+                     t_steps: int = 8,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """``t_steps`` 2D steps in plain PyTorch: f32 compute, one RTNE
+    narrowing at the end."""
+    return multi_plain(_step_f32, u, bc, t_steps, out)
+
+
+def launch_multi_2d(symbol: str, u: torch.Tensor, bc: str, t_steps: int,
+                    rows_per_chunk: int | None, cols_per_chunk: int | None,
+                    out: torch.Tensor | None) -> tuple[torch.Tensor, int]:
+    """Launch a 2D multi kernel (``symbol``) on a CUDA field with a tile
+    of ``rows_per_chunk`` x ``cols_per_chunk`` outputs (default
+    :data:`MULTI_DEFAULT_TILE`); returns ``(out, launches)``."""
+    out = check_kernel_args(u, 2, out)
+    tile = (
+        MULTI_DEFAULT_TILE[0] if rows_per_chunk is None else rows_per_chunk,
+        MULTI_DEFAULT_TILE[1] if cols_per_chunk is None else cols_per_chunk,
+    )
+    return out, launch_multi(symbol, u, out, bc, t_steps, tile)
 
 
 def step_stream(u: torch.Tensor, bc: str = "dirichlet",
@@ -95,6 +148,28 @@ def step_block(u: torch.Tensor, bc: str = "dirichlet",
 
 step_block.launches = 0
 
+
+def step_multi(u: torch.Tensor, bc: str = "dirichlet", t_steps: int = 8,
+               rows_per_chunk: int | None = None,
+               cols_per_chunk: int | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """``t_steps`` 2D steps in one pass: the CUDA kernel for a CUDA
+    tensor, ``step_multi_plain`` for a CPU tensor. A block owns a tile of
+    ``rows_per_chunk`` x ``cols_per_chunk`` outputs. Writes into ``out``
+    (which must not alias ``u``) when given. ``step_multi.launches``
+    counts kernel launches (more than one a pass beyond
+    ``tiling.MULTI_T_MAX`` steps)."""
+    check_bc(bc)
+    if u.device.type == "cpu":
+        return step_multi_plain(u, bc, t_steps, out)
+    out, n = launch_multi_2d("tc_jacobi2d_multi", u, bc, t_steps,
+                             rows_per_chunk, cols_per_chunk, out)
+    step_multi.launches += n
+    return out
+
+
+step_multi.launches = 0
+
 STEPS = {"stream": step_stream, "block": step_block}
 IMPLS = tuple(STEPS)
 
@@ -103,6 +178,13 @@ def run(u0: torch.Tensor, iters: int, bc: str = "dirichlet",
         impl: str = "stream", **kwargs) -> torch.Tensor:
     """Iterate the 2D stencil (shared loop in kernels/__init__)."""
     return run_steps(STEPS[impl], u0, iters, bc, **kwargs)
+
+
+def run_multi(u0: torch.Tensor, iters: int, bc: str = "dirichlet",
+              t_steps: int = 8, **kwargs) -> torch.Tensor:
+    """Iterate by temporal blocking, ``iters // t_steps`` passes of
+    :func:`step_multi`; ``iters`` must be a multiple of ``t_steps``."""
+    return run_steps_multi(step_multi, u0, iters, bc, t_steps, **kwargs)
 
 
 def run_to_convergence(u0: torch.Tensor, tol: float, max_iters: int,

@@ -17,6 +17,8 @@ even.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -197,6 +199,69 @@ def launch_stencil(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
         KERNEL_DTYPE_CODES[u.dtype], int(bc == "periodic"),
         *(() if chunk is None else (chunk,)),
     )
+
+
+#: the most steps one launch of ``csrc/multi.cu`` runs, by field rank
+#: (its kTMax1, kTMax2); a wrapper asked for more chains launches
+MULTI_T_MAX = {1: 256, 2: 16}
+#: the dynamic shared memory a block may use on sm_90 (``csrc/multi.cu``
+#: kMaxSmem)
+MAX_SMEM_BYTES = 232448
+#: grid.y is limited to 65535 blocks
+MAX_GRID_Y = 65535
+
+
+def check_t_steps(t_steps: int) -> None:
+    """The steps of a temporal-blocking pass: at least 1."""
+    if t_steps < 1:
+        raise ValueError(f"t_steps must be >= 1, got {t_steps}")
+
+
+def multi_passes(t_steps: int, t_max: int) -> list[int]:
+    """The steps each launch of a ``t_steps`` pass runs: ``t_max`` a
+    launch, the last one the rest."""
+    check_t_steps(t_steps)
+    full, rest = divmod(t_steps, t_max)
+    return [t_max] * full + ([rest] if rest else [])
+
+
+def launch_multi(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
+                 t_steps: int, tile: tuple[int, ...]) -> int:
+    """Launch a temporal-blocking kernel of ``csrc/multi.cu``: ``t_steps``
+    fused steps of ``u`` into ``out`` (validate both with
+    :func:`check_kernel_args` first); ``tile`` is a block's output tile
+    (elements in 1D; rows, columns in 2D). Beyond ``MULTI_T_MAX`` steps
+    the pass is chained: a launch from ``u`` into an f32 scratch field,
+    launches between two f32 fields, and one from f32 into ``out``, so the
+    field is narrowed once, as in a single launch. Returns the number of
+    launches."""
+    steps = multi_passes(t_steps, MULTI_T_MAX[u.dim()])
+    halo = max(steps)
+    smem = 2 * 4 * math.prod(n + 2 * halo for n in tile)
+    if min(tile) < 1:
+        raise ValueError(f"the tile must be >= 1 cell a side, got {tile}")
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"tile {tile} with its {halo}-cell halo needs {smem} bytes of "
+            f"shared memory; a block has {MAX_SMEM_BYTES}"
+        )
+    if u.dim() == 2 and -(-u.shape[0] // tile[0]) > MAX_GRID_Y:
+        raise ValueError(
+            f"{u.shape[0]} rows need tiles of more than {tile[0]} rows "
+            f"(at most {MAX_GRID_Y} tiles down the field)"
+        )
+    scratch = [torch.empty(u.shape, dtype=torch.float32, device=u.device)
+               for _ in range(min(len(steps) - 1, 2))]
+    src = u
+    for i, t in enumerate(steps):
+        dst = out if i == len(steps) - 1 else scratch[i % 2]
+        launch_kernel(
+            symbol, u, src.data_ptr(), dst.data_ptr(), *u.shape,
+            KERNEL_DTYPE_CODES[src.dtype], KERNEL_DTYPE_CODES[dst.dtype],
+            int(bc == "periodic"), *tile, t,
+        )
+        src = dst
+    return len(steps)
 
 
 def from_numpy_field(
