@@ -12,9 +12,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
 3. every kernel against its plain PyTorch version on the card, required
    bitwise equal (``torch.equal``):
    - stencils, the stream and the block kernels of the star (1D, 2D, 3D)
-     and of the box stencils (2D 9-point, 3D 27-point): kernel x
-     {float32, bfloat16, float16} x {dirichlet, periodic}, 20 steps at
-     full size, plus ragged shapes and (stream) a non-default chunk;
+     and of the box stencils (2D 9-point, 3D 27-point), the grid and wave
+     kernels of the 1D and 2D star and the 1D stream kernel's carry form
+     (stream2): kernel x {float32, bfloat16, float16} x {dirichlet,
+     periodic} (wave: dirichlet, and its refusal of periodic asserted),
+     20 steps at full size, plus ragged shapes and (every chunked arm) a
+     non-default chunk;
    - temporal blocking, the multi kernels of the 1D and 2D star and the
      9-point box: every dtype x bc at full size over 3 passes of t = 8,
      t = 1 (in float32 also equal to one step of the block kernel), a t
@@ -31,7 +34,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    kernel's launch count set to 0 just before and read just after:
    ``stencil --impl auto --verify`` for dims 1, 2 and 3 at full size, the
    box stencils ``stencil --points 9 --dim 2`` and ``--points 27 --dim 3``
-   with ``--impl auto`` and ``--impl block``, ``membw --op OP --impl
+   with ``--impl auto`` and ``--impl block``, ``--impl grid``, ``wave``
+   and ``torch`` in 1D and 2D and ``--impl stream2`` in 1D (a ``torch``
+   run launches no kernel), ``membw --op OP --impl
    ARM`` for every (op, arm) pair the JAX CLI accepts, and the mesh runs
    ``stencil --mesh 1[,1[,1]]`` (world size 1, the NCCL group created; a
    periodic axis exchanges with its own rank through NCCL) for the block
@@ -60,6 +65,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the block arm's step;
 6. the script's time, the ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, ...}`` line.
+
+Phase 5 also times the grid, wave and stream2 kernels like the other
+single-device stencils (``measure_times``).
 
 Full sizes: stencils 1D 2^26 points, 2D 8192^2, 3D 512^3 (the box
 stencils too); membw 2^26 elements. In float32 that is 256/256/512 MiB
@@ -108,13 +116,36 @@ KERNELS = {
         9: ("stencil9_block", "tpu_comm/kernels/stencil9.py:79"),
         27: ("stencil27_block", "tpu_comm/kernels/stencil27.py:105"),
     },
+    "grid": {
+        1: ("jacobi1d_grid", "tpu_comm/kernels/jacobi1d.py:174"),
+        2: ("jacobi2d_grid", "tpu_comm/kernels/jacobi2d.py:189"),
+    },
+    "wave": {
+        1: ("jacobi1d_wave", "tpu_comm/kernels/jacobi1d.py:558"),
+        2: ("jacobi2d_wave", "tpu_comm/kernels/jacobi2d.py:517"),
+    },
+    "stream2": {
+        1: ("jacobi1d_stream2", "tpu_comm/kernels/jacobi1d.py:318"),
+    },
 }
 SOURCES = {"stream": "tpu_comm_torch/csrc/jacobi_stream.cu",
-           "block": "tpu_comm_torch/csrc/jacobi_block.cu"}
+           "block": "tpu_comm_torch/csrc/jacobi_block.cu",
+           "grid": "tpu_comm_torch/csrc/grid.cu",
+           "wave": "tpu_comm_torch/csrc/wave.cu",
+           "stream2": "tpu_comm_torch/csrc/jacobi_stream.cu"}
+#: the bcs each arm runs (wave: dirichlet only, as JAX's pallas-wave)
+ARM_BCS = {"wave": ("dirichlet",)}
+#: the chunks phase 5 also times the grid and wave kernels at (float32,
+#: dirichlet), beside their defaults: rows of 128 cells (1D), tile rows
+#: or ring-block rows (2D)
+CHUNK_SWEEP = {"grid": {1: (16, 32, 128), 2: (16, 64)},
+               "wave": {1: (8, 32), 2: (4, 16)}}
 BOX_SOURCE = "tpu_comm_torch/csrc/box.cu"
 #: the single-device runs of phase 4: (key, --impl)
 MAIN_RUNS = [(1, "auto"), (2, "auto"), (3, "auto"), (9, "auto"),
-             (9, "block"), (27, "auto"), (27, "block")]
+             (9, "block"), (27, "auto"), (27, "block"), (1, "grid"),
+             (2, "grid"), (1, "wave"), (2, "wave"), (1, "stream2"),
+             (1, "torch"), (2, "torch")]
 PACK_KERNEL = ("pack_faces", "tpu_comm/kernels/pack.py:48")
 PACK_SOURCE = "tpu_comm_torch/csrc/pack.cu"
 PACK_RAGGED = [(1, 1, 1), (3, 5, 7), (19, 23, 45), (130, 9, 33)]
@@ -131,6 +162,10 @@ MESH_RUNS = [(1, "block", "fused"), (2, "block", "fused"),
 MESH_TOL_RUNS = [(2, "block"), (9, "block")]
 #: loop lengths of a mesh run (the eager face work makes a step long)
 MESH_ITERS = 20
+#: steps a mesh run's --verify holds against the NumPy golden on the host
+#: (one step of the 512^3 27-point golden takes seconds; a multi run
+#: rounds it up to its t)
+MESH_VERIFY_ITERS = 1
 RAGGED = {
     1: [(3,), (1000001,)],
     2: [(3, 3), (37, 301), (1001, 37)],
@@ -253,22 +288,23 @@ def queued_ms(torch, fn, reps: int, filler) -> tuple[float, bool]:
 
 
 def check_kernels(torch, mods, arm: str) -> dict:
-    """Phase 3: the ``arm`` kernel of each stencil vs the plain version,
-    bitwise; returns the max abs error per stencil key (0.0 when every
-    case was equal)."""
+    """Phase 3: the ``arm`` kernel of each stencil it serves vs the plain
+    version, bitwise; returns the max abs error per stencil key (0.0 when
+    every case was equal)."""
     from tpu_comm_torch.kernels import run_steps
 
     errs = {}
-    for key, mod in mods.items():
-        dim = DIM[key]
+    bcs = ARM_BCS.get(arm, ("dirichlet", "periodic"))
+    for key in KERNELS[arm]:
+        mod, dim = mods[key], DIM[key]
         name = KERNELS[arm][key][0]
         cases = [(SIZES[dim],) * dim] + RAGGED[dim]
-        if key in LEAST_DEPTH[arm]:
+        if key in LEAST_DEPTH.get(arm, ()):
             cases = cases + [(2, 3, 3)]
         worst = 0.0
         for shape in cases:
             for dtype in (torch.float32, torch.bfloat16, torch.float16):
-                for bc in ("dirichlet", "periodic"):
+                for bc in bcs:
                     u = random_field(torch, shape, dtype, seed=dim)
                     got = mod.run(u, CHECK_STEPS, bc=bc, impl=arm)
                     want = run_steps(mod.step_plain, u, CHECK_STEPS, bc)
@@ -278,16 +314,26 @@ def check_kernels(torch, mods, arm: str) -> dict:
                     if not torch.equal(got, want) or got.dtype != dtype:
                         fail(f"{name} {shape} {dtype} {bc}: "
                              f"kernel != plain (max abs err {err})")
-                    if (arm == "stream" and shape == cases[0]
-                            and bc == "periodic"):
+                    if (arm != "block" and shape == cases[0]
+                            and bc == bcs[-1]):
                         knob = "planes_per_chunk" if dim == 3 else \
                             "rows_per_chunk"
-                        odd = mod.run(u, 2, bc=bc, **{knob: ODD_CHUNK[dim]})
-                        if not torch.equal(odd, mod.run(u, 2, bc=bc)):
+                        odd = mod.run(u, 2, bc=bc, impl=arm,
+                                      **{knob: ODD_CHUNK[dim]})
+                        if not torch.equal(odd, mod.run(u, 2, bc=bc,
+                                                        impl=arm)):
                             fail(f"{name}: result depends on the chunk")
                     del u, got, want
+        if arm == "wave":
+            try:
+                mod.step_wave(random_field(torch, cases[1], torch.float32,
+                                           seed=dim), "periodic")
+            except ValueError:
+                pass
+            else:
+                fail(f"{name} took bc=periodic")
         errs[key] = worst
-        emit({"check": {"kernel": name, "shapes": cases,
+        emit({"check": {"kernel": name, "shapes": cases, "bcs": list(bcs),
                         "steps": CHECK_STEPS, "max_abs_err": worst,
                         "tolerance": "bitwise (torch.equal)",
                         "elapsed_s": time.perf_counter() - T0}})
@@ -353,7 +399,8 @@ def drive_main_path(torch, counters) -> dict:
             counts = {k: w.launches for k, w in counters.items()}
             what = " ".join(argv[1:-2])
             arm = "stream" if impl == "auto" else impl
-            name = KERNELS[arm][key][0]
+            # the torch arm runs plain PyTorch: no kernel of the port
+            name = KERNELS[arm][key][0] if arm in KERNELS else None
             if rc != 0:
                 fail(f"{what} exited {rc}")
             row = json.loads(path.read_text().splitlines()[-1])
@@ -362,13 +409,15 @@ def drive_main_path(torch, counters) -> dict:
             got = {k: row.get(k) for k in want}
             if got != want:
                 fail(f"{what}: row says {got}, expected {want}")
-            if counts[name] == 0:
+            if name is not None and counts[name] == 0:
                 fail(f"{name} was not launched on the main path")
             if any(c for k, c in counts.items() if k != name):
                 fail(f"{what} launched other kernels: {counts}")
-            launches[name] += counts[name]
+            if name is not None:
+                launches[name] += counts[name]
             emit({"main_path": {"stencil": _workload(key), "impl": arm,
-                                "launches": counts[name],
+                                "kernel": name,
+                                "launches": counts.get(name, 0),
                                 "gbps_eff": row["gbps_eff"],
                                 "secs_per_iter": row["secs_per_iter"],
                                 "elapsed_s": time.perf_counter() - T0}})
@@ -401,7 +450,7 @@ def drive_mesh(torch, counters) -> dict:
                     *_stencil_argv(key), "--size",
                     str(SIZES[dim]),
                     "--impl", impl, "--pack", pack, "--bc", bc, "--verify",
-                    "--verify-iters", str(VERIFY_ITERS), "--iters",
+                    "--verify-iters", str(MESH_VERIFY_ITERS), "--iters",
                     str(8 if tol else MESH_ITERS), "--warmup", "2",
                     "--reps", "5", "--jsonl", str(path), *extra]
             rc = cli.main(argv)
@@ -474,17 +523,24 @@ def measure_times(torch, mods, arm: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    for key, mod in mods.items():
-        dim = DIM[key]
+    for key in KERNELS[arm]:
+        mod, dim = mods[key], DIM[key]
         shape = (SIZES[dim],) * dim
         u = random_field(torch, shape, torch.float32, seed=10 + key)
         dst = torch.empty_like(u)
         n = u.numel()
         step = mod.STEPS[arm]
         kernel_ms = time_ms(torch, lambda: step(u, "dirichlet", out=dst), 50)
-        periodic_ms = time_ms(torch, lambda: step(u, "periodic", out=dst), 50)
+        periodic_ms = None
+        if "periodic" in ARM_BCS.get(arm, ("periodic",)):
+            periodic_ms = time_ms(
+                torch, lambda: step(u, "periodic", out=dst), 50)
         plain_ms = time_ms(
             torch, lambda: mod.step_plain(u, "dirichlet", out=dst), 10)
+        chunk_sweep_ms = {
+            str(c): time_ms(torch, lambda: step(
+                u, "dirichlet", rows_per_chunk=c, out=dst), 50)
+            for c in CHUNK_SWEEP.get(arm, {}).get(key, ())}
         copy_ms = time_ms(torch, lambda: dst.copy_(u), 50)
         flat_u, flat_dst = u.reshape(-1), dst.reshape(-1)
         chunked_copy_ms = time_ms(
@@ -506,6 +562,7 @@ def measure_times(torch, mods, arm: str) -> dict:
             "kernel": KERNELS[arm][key][0], "shape": list(shape),
             "dtype": "float32", "bc": "dirichlet",
             "kernel_ms": kernel_ms, "kernel_periodic_ms": periodic_ms,
+            **({"chunk_sweep_ms": chunk_sweep_ms} if chunk_sweep_ms else {}),
             "plain_ms": plain_ms,
             "library_ms": library_ms,
             "library_call": f"torch.nn.Conv{dim}d(padding_mode='circular')",
@@ -1104,7 +1161,7 @@ def main() -> int:
             for key in DIM}
     counters = {
         KERNELS[arm][key][0]: mods[key].STEPS[arm]
-        for arm in KERNELS for key in mods
+        for arm in KERNELS for key in KERNELS[arm]
     }
     counters[PACK_KERNEL[0]] = pack.pack_faces
     counters.update({f"membw.{w.__name__}": w for w in membw.WRAPPERS})
@@ -1128,7 +1185,7 @@ def main() -> int:
     print(smi, flush=True)
     stencil_rows = []
     for arm in KERNELS:
-        for key in DIM:
+        for key in KERNELS[arm]:
             name, replaces = KERNELS[arm][key]
             t = times[arm][key]
             stencil_rows.append({

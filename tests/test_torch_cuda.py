@@ -438,3 +438,96 @@ def test_multi_mesh_of_one_on_the_card_through_nccl(card, dim, points, bc):
     assert (rec["impl"], rec["t_steps"]) == ("multi", 3)
     if mod is not None:
         assert mod.step_multi.launches == before
+
+
+#: the single-device arms of slice 6: arm -> the dims it runs and its bcs
+STAGED_ARMS = {
+    "grid": ((1, 2), ("dirichlet", "periodic")),
+    "wave": ((1, 2), ("dirichlet",)),
+    "stream2": ((1,), ("dirichlet", "periodic")),
+}
+STAGED_CASES = [(arm, dim, bc) for arm, (dims, bcs) in STAGED_ARMS.items()
+                for dim in dims for bc in bcs]
+#: shapes past a chunk's seams and ragged at the field's end
+STAGED_SHAPES = {
+    1: [(3,), (1001,), (1000001,), (1 << 20,)],
+    2: [(3, 3), (37, 301), (1001, 37), (300, 1030), (1024, 1024)],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("arm,dim,bc", STAGED_CASES)
+def test_staged_kernels_bitwise_equal_plain_version(card, arm, dim, bc,
+                                                    dtype):
+    mod = MODS[dim]
+    for shape in STAGED_SHAPES[dim]:
+        u = _field(shape, dtype, seed=len(shape))
+        got = mod.run(u, 5, bc=bc, impl=arm)
+        want = run_steps(mod.step_plain, u, 5, bc)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want), shape
+
+
+@pytest.mark.parametrize("arm,dim,bc", STAGED_CASES)
+def test_staged_chunk_sets_the_grid_not_the_result(card, arm, dim, bc):
+    mod = MODS[dim]
+    u = _field(STAGED_SHAPES[dim][-2], torch.float32)
+    step = mod.STEPS[arm]
+    ref = step(u, bc)
+    for chunk in (1, 2, 3, 7, 24):
+        assert torch.equal(step(u, bc, rows_per_chunk=chunk), ref), chunk
+
+
+@pytest.mark.parametrize("arm,dim,bc", STAGED_CASES)
+def test_staged_kernels_take_views_off_the_16_byte_grid(card, arm, dim, bc):
+    """The field's unaligned ends go by plain loads, the rest by bulk
+    copies."""
+    base = _field((1 << 16) + 8, torch.float32)
+    u = base[1:1 + 60000] if dim == 1 else base[3:3 + 200 * 300].view(200, 300)
+    step = MODS[dim].STEPS[arm]
+    assert torch.equal(step(u, bc), MODS[dim].step_plain(u, bc))
+
+
+@pytest.mark.parametrize("arm,dim", [(a, d) for a, (dims, _) in
+                                     STAGED_ARMS.items() for d in dims])
+def test_staged_wrappers_count_launches_and_check_arguments(card, arm, dim):
+    mod = MODS[dim]
+    step = mod.STEPS[arm]
+    u = _field(STAGED_SHAPES[dim][1], torch.float32)
+    before = step.launches
+    out = torch.empty_like(u)
+    assert step(u, out=out) is out
+    assert step.launches == before + 1
+    with pytest.raises(ValueError, match="alias"):
+        step(u, out=u)
+    with pytest.raises(ValueError, match="takes"):
+        step(u.double())
+    if arm == "wave":
+        with pytest.raises(ValueError, match="bc='dirichlet' only"):
+            step(u, "periodic")
+    if arm != "stream2":
+        with pytest.raises(ValueError, match="shared memory"):
+            step(u, rows_per_chunk=1 << 12)
+    assert step.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("dim,points", [(1, 0), (2, 0), (3, 0), (2, 9),
+                                        (3, 27)])
+def test_torch_arm_on_the_card_launches_no_kernel(card, dim, points, bc,
+                                                  dtype):
+    """The single-device torch arm runs plain PyTorch in the field's
+    dtype on the card: the same values as on the CPU, no kernel of the
+    port."""
+    from tpu_comm_torch.kernels import kernels_for
+
+    mod = kernels_for(dim, points)
+    shape = {1: (1001,), 2: (37, 301), 3: (19, 23, 45)}[dim]
+    u = _field(shape, dtype)
+    counts = [w.launches for w in (mod.step_stream, mod.step_block)]
+    got = mod.run(u, 3, bc=bc, impl="torch")
+    want = mod.run(u.cpu(), 3, bc=bc, impl="torch")
+    assert torch.equal(got.cpu(), want)
+    assert [w.launches for w in (mod.step_stream, mod.step_block)] == counts

@@ -671,8 +671,8 @@ def test_cli_joins_the_group_a_launcher_gives_it(tmp_path):
       "partitioned"], "not yet ported; see ROADMAP.md"),
     (["--dim", "2", "--size", "64", "--mesh", "4"], "has 1 axes, --dim is 2"),
     (["--dim", "2", "--size", "64", "--mesh", "2,0"], "positive sizes"),
-    (["--dim", "2", "--size", "64", "--impl", "torch"],
-     "--impl torch: the single-device 'torch' arm (JAX 'lax') is not yet "
+    (["--dim", "2", "--size", "64", "--mesh", "2,2", "--impl", "wave"],
+     "--impl wave on a mesh (JAX's ghost-fed pallas-wave) is not yet "
      "ported"),
     (["--dim", "3", "--size", "16", "--pack", "kernel"],
      "--pack applies to a 3D mesh run"),
@@ -752,9 +752,9 @@ def test_box_library_refuses_what_jax_refuses():
     assert str(port.value) == str(ref.value)
     for cart, impl, kwargs, message in [
         (cart2, "overlap", {"stencil": "5pt"}, "unknown stencil '5pt'"),
-        (cart2, "pallas-wave", {"stencil": "9pt"}, "impl 'pallas-wave' is "
+        (cart2, "wave", {"stencil": "9pt"}, "impl 'wave' is "
          "not yet ported for stencil='9pt'"),
-        (cart3, "pallas-wave", {"stencil": "27pt"}, "not yet ported"),
+        (cart3, "wave", {"stencil": "27pt"}, "not yet ported"),
         (cart3, "partitioned", {"stencil": "27pt"},
          "stencil='27pt' supports impl='torch'|'overlap'|'block'|'stream'"),
         (cart3, "block", {"stencil": "27pt", "pack": "kernel"},

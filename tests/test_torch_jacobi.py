@@ -205,8 +205,8 @@ def test_block_wrapper_on_cpu_runs_plain_version_into_out(dim):
     assert got is out
     assert torch.equal(out, PORT[dim].step_plain(ut, bc="periodic"))
     assert PORT[dim].step_block.launches == before
-    assert PORT[dim].STEPS == {"stream": PORT[dim].step_stream,
-                               "block": PORT[dim].step_block}
+    assert (PORT[dim].STEPS["stream"], PORT[dim].STEPS["block"]) == (
+        PORT[dim].step_stream, PORT[dim].step_block)
 
 
 @pytest.mark.parametrize("arm", ["step_stream", "step_block"])

@@ -129,48 +129,55 @@ def test_cli_default_backend_is_cuda_and_refuses_without_card(capsys):
 
 
 #: what the CLI answers to each arm name it does not run on one device
+#: (the extra flags a case needs)
 REFUSED_IMPLS = {
-    "lax": "the single-device 'torch' arm (JAX 'lax') is not yet ported; "
-           "see ROADMAP.md",
-    "torch": "the single-device 'torch' arm (JAX 'lax') is not yet "
-             "ported; see ROADMAP.md",
+    "lax": "the JAX package's name; the port calls this arm 'torch'",
+    "wave": "wave supports bc='dirichlet' only, as JAX's pallas-wave",
     "pallas": "the JAX package's name; the port calls this arm 'block'",
     "pallas-stream": "the JAX package's name; the port calls this arm "
                      "'stream'",
-    "pallas-grid": "not yet ported; see ROADMAP.md",
-    "pallas-wave": "not yet ported; see ROADMAP.md",
+    "pallas-grid": "the JAX package's name; the port calls this arm 'grid'",
+    "pallas-wave": "the JAX package's name; the port calls this arm 'wave'",
     "pallas-multi": "the JAX package's name; the port calls this arm "
                     "'multi'",
     "partitioned": "not yet ported; see ROADMAP.md",
     "overlap": "is an arm of a mesh run: pass --mesh",
 }
+REFUSED_EXTRA = {"wave": ["--bc", "periodic"]}
 
 
-@pytest.mark.parametrize("impl", ["lax", "torch", "pallas", "pallas-grid",
+@pytest.mark.parametrize("impl", ["lax", "wave", "pallas", "pallas-grid",
                                   "pallas-stream", "pallas-wave",
                                   "pallas-multi", "partitioned", "overlap"])
 def test_cli_refuses_unported_impls(capsys, impl):
     """An arm the port has under another name is answered with that name,
-    a mesh arm with ``--mesh``, the rest with the roadmap; JAX's
-    single-device ``lax`` arm, by either name, is not yet ported (the
-    port's ``torch`` arm runs on a mesh only)."""
+    a mesh arm with ``--mesh``, an arm the port lacks with the roadmap,
+    and the dirichlet-only ``wave`` under periodic with JAX's reason."""
     rc = cli.main(["stencil", "--backend", "cpu", "--dim", "1", "--size",
-                   "1024", "--iters", "2", "--impl", impl])
+                   "1024", "--iters", "2", "--impl", impl,
+                   *REFUSED_EXTRA.get(impl, [])])
     assert rc == 2
     assert REFUSED_IMPLS[impl] in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("impl", ["lax", "torch"])
 def test_single_device_torch_arm_is_refused_by_both_names(capsys, impl):
-    """JAX's single-device ``lax`` arm has no port yet: neither name points
-    one device to an arm it then refuses. On a mesh ``lax`` still answers
-    with the port's name and ``torch`` runs."""
+    """JAX's ``lax`` arm is the port's ``torch`` arm on one device and on
+    a mesh alike: ``lax`` is answered with the port's name in both modes,
+    and ``torch`` runs in both, refused on one device only with a knob it
+    does not take (``--chunk``)."""
     argv = ["stencil", "--backend", "cpu", "--dim", "2", "--size", "64",
             "--iters", "2", "--impl", impl]
-    assert cli.main(argv) == 2
-    err = capsys.readouterr().err
-    assert "the single-device 'torch' arm (JAX 'lax') is not yet ported" \
-        in err and "calls this arm" not in err
+    if impl == "lax":
+        assert cli.main(argv) == 2
+        err = capsys.readouterr().err
+        assert "the port calls this arm 'torch'" in err
+        assert "not yet ported" not in err
+    else:
+        assert cli.main(argv + ["--chunk", "8"]) == 2
+        assert "--chunk applies to" in capsys.readouterr().err
+        assert cli.main(argv) == 0
+        assert json.loads(capsys.readouterr().out)["impl"] == "torch"
     cfg = pstencil.StencilConfig(dim=2, size=64, iters=2, impl=impl,
                                  mesh=(2, 2), backend="cpu")
     if impl == "lax":

@@ -16,13 +16,21 @@ what they run:
 The stencil driver's arms follow the same rule (``overlap`` keeps its
 name: it names no Pallas kernel):
 
-    JAX           port
-    lax           torch     plain PyTorch on the ghost-padded block (mesh)
-    overlap       overlap   interior/boundary split in plain PyTorch (mesh)
-    pallas        block     csrc/jacobi_block.cu (mesh and one device)
-    pallas-stream stream    csrc/jacobi_stream.cu (mesh and one device)
-    pallas-multi  multi     csrc/multi.cu, t steps a pass (one device)
-    multi         multi     width-t ghosts, t steps an exchange (mesh)
+    JAX            port
+    lax            torch    plain PyTorch in the field's dtype, on the
+                            ghost-padded block (mesh) or the field (one
+                            device)
+    overlap        overlap  interior/boundary split in plain PyTorch (mesh)
+    pallas         block    csrc/jacobi_block.cu (mesh and one device)
+    pallas-stream  stream   csrc/jacobi_stream.cu (mesh and one device)
+    pallas-stream2 stream2  csrc/jacobi_stream.cu, its column-strip carry
+                            form (1D, one device)
+    pallas-grid    grid     csrc/grid.cu, a window a CTA (1D, 2D, one
+                            device)
+    pallas-wave    wave     csrc/wave.cu, ring-buffered block streams
+                            (1D, 2D, one device; dirichlet)
+    pallas-multi   multi    csrc/multi.cu, t steps a pass (one device)
+    multi          multi    width-t ghosts, t steps an exchange (mesh)
     --pack fused  fused     slice copies of the faces
     --pack pallas kernel    csrc/pack.cu pack_faces_kernel (3D mesh)
 
@@ -47,6 +55,9 @@ JAX_STENCIL_IMPLS = {
     "lax": "torch",
     "pallas": "block",
     "pallas-stream": "stream",
+    "pallas-stream2": "stream2",
+    "pallas-grid": "grid",
+    "pallas-wave": "wave",
     "pallas-multi": "multi",
 }
 #: the JAX package's ``--pack`` name -> the port's

@@ -20,8 +20,10 @@ the same initial field and takes its own block; rank 0 gathers the
 field, checks it and writes the one row, and its verdict is broadcast
 so that every rank fails together.
 
-Arm names are the port's own (``bench/__init__.py`` ``STENCIL_IMPLS``
+Arm names are the port's own (``bench/__init__.py`` ``JAX_STENCIL_IMPLS``
 maps the JAX names); a JAX name is refused with the port's name for it.
+One device takes its arms from the family's module
+(:func:`single_device_impls`), as the JAX driver takes ``kernels.IMPLS``.
 
 Rows keep the JAX driver's identity fields (``workload``, ``impl``,
 ``backend``, ``platform``, ``dtype``, ``bc``, ``size``, ``iters``, ...),
@@ -45,6 +47,7 @@ from tpu_comm_torch.bench.timing import (
 )
 from tpu_comm_torch.kernels import kernels_for, reference, stencil_name
 from tpu_comm_torch.kernels.tiling import (
+    check_wave_bc,
     from_numpy_field,
     numpy_dtype,
     to_numpy_field,
@@ -53,16 +56,18 @@ from tpu_comm_torch.kernels.tiling import (
 
 #: default global points per dimension (the JAX driver's defaults)
 DEFAULT_SIZES = {1: 1 << 20, 2: 4096, 3: 256}
-#: the single-device arms; ``auto`` resolves to ``stream`` (as JAX's,
-#: which never picks ``pallas-multi``). (On the TPU the JAX driver's
-#: ``auto`` for ``--points 27`` under dirichlet picks ``pallas-wave``; the
-#: port follows once that kernel is ported.)
-IMPLS = ("stream", "block", "multi")
 #: the arms of a mesh run; ``auto`` resolves to ``overlap``
 DIST_IMPLS = ("torch", "overlap", "block", "stream", "multi")
-#: the JAX driver's other arms, refused until a later slice ports them
-UNPORTED_IMPLS = ("pallas-grid", "pallas-stream2", "pallas-wave",
-                  "partitioned")
+#: the JAX driver's other arm, refused until a later slice ports it
+UNPORTED_IMPLS = ("partitioned",)
+#: the arms that take ``--chunk``, each with its family module's default
+CHUNK_DEFAULTS = {
+    "stream": "default_chunk",
+    "stream2": "default_chunk",
+    "grid": "default_grid_chunk",
+    "wave": "default_wave_chunk",
+    "multi": "default_multi_chunk",
+}
 
 
 @dataclass
@@ -76,8 +81,8 @@ class StencilConfig:
     bc: str = "dirichlet"
     # "auto" resolves to "stream" on one device, "overlap" on a mesh
     impl: str = "auto"
-    # rows per CUDA block (1D: rows of 128 elements; 2D: rows of a
-    # 32-column strip, or of the multi arm's tile) or z-planes per block
+    # the chunked arms' (CHUNK_DEFAULTS) rows per CUDA block (1D: rows of
+    # 128 elements; 2D: rows of a strip or tile) or z-planes per block
     # (3D); None = the kernel's default. It sets the launch grid, never
     # the result.
     chunk: int | None = None
@@ -114,37 +119,75 @@ def _stencil_tag(cfg: StencilConfig) -> str:
     return f"stencil{cfg.dim}d{suffix}"
 
 
-def resolve_impl(impl: str, distributed: bool = False) -> str:
-    """``auto`` -> ``stream`` on one device and ``overlap`` on a mesh (the
-    JAX driver's choice there); a JAX arm name, an arm not yet ported, an
-    arm of the other mode or an unknown name raises ValueError."""
-    impls = DIST_IMPLS if distributed else IMPLS
+def single_device_impls(kernels) -> tuple[str, ...]:
+    """The arms one device runs for a family module: its ``STEPS``, and
+    ``multi`` where it has temporal blocking (JAX's ``kernels.IMPLS``
+    plus ``pallas-multi``)."""
+    return tuple(kernels.STEPS) + (
+        ("multi",) if hasattr(kernels, "run_multi") else ()
+    )
+
+
+def resolve_impl(impl: str, distributed: bool = False, dim: int = 1,
+                 points: int = 0) -> str:
+    """The arm ``impl`` names for the stencil of ``dim`` and ``points``:
+    ``auto`` is ``overlap`` on a mesh and ``stream`` on one device (JAX's
+    ``auto`` on one device picks by a table of tuned A/B results, which
+    the port does not have yet: ROADMAP queue A item 11). A JAX arm name,
+    an arm of the other mode, one the family lacks, one not yet ported or
+    an unknown name raises ValueError."""
     if impl == "auto":
         return "overlap" if distributed else "stream"
-    if impl in impls:
-        return impl
-    if not distributed and JAX_STENCIL_IMPLS.get(impl, impl) == "torch":
-        # JAX's single-device lax arm: the port's torch arm runs on a mesh
-        # only so far
-        raise ValueError(
-            f"--impl {impl}: the single-device 'torch' arm (JAX 'lax') is "
-            f"not yet ported; see ROADMAP.md (ported on one device: "
-            f"{', '.join(('auto',) + IMPLS)})"
-        )
     if impl in JAX_STENCIL_IMPLS:
         raise ValueError(
             f"--impl {impl} is the JAX package's name; the port calls this "
             f"arm {JAX_STENCIL_IMPLS[impl]!r}"
         )
-    if impl in UNPORTED_IMPLS:
+    if distributed:
+        if impl in DIST_IMPLS:
+            return impl
+        if impl == "wave":
+            raise ValueError(
+                "--impl wave on a mesh (JAX's ghost-fed pallas-wave) is not "
+                "yet ported; see ROADMAP.md"
+            )
+        if impl in CHUNK_DEFAULTS:
+            raise ValueError(
+                f"--impl {impl} is an arm of one device: drop --mesh (a "
+                f"mesh has {', '.join(('auto',) + DIST_IMPLS)})"
+            )
+        if impl in UNPORTED_IMPLS:
+            raise ValueError(
+                f"--impl {impl} is not yet ported; see ROADMAP.md (ported: "
+                f"{', '.join(('auto',) + DIST_IMPLS)})"
+            )
         raise ValueError(
-            f"--impl {impl} is not yet ported; see ROADMAP.md (ported: "
-            f"{', '.join(('auto',) + impls)})"
+            f"--impl must be one of {('auto',) + DIST_IMPLS}, got {impl!r}"
+        )
+    impls = single_device_impls(kernels_for(dim, points))
+    # a family without temporal blocking is answered by _validate
+    if impl in impls or impl == "multi":
+        return impl
+    family = f"--points {points}" if points else f"dim={dim}"
+    if impl == "wave" and points:
+        raise ValueError(
+            f"--impl wave for {family} (JAX's pallas-wave, the box in "
+            f"ring-buffer form) is not yet ported; see ROADMAP.md"
+        )
+    if impl in CHUNK_DEFAULTS:
+        raise ValueError(
+            f"--impl {impl} not available for {family} (choices: "
+            f"{('auto',) + impls})"
         )
     if impl in DIST_IMPLS:
         raise ValueError(
             f"--impl {impl} is an arm of a mesh run: pass --mesh (one "
-            f"device has {', '.join(('auto',) + IMPLS)})"
+            f"device has {', '.join(('auto',) + impls)})"
+        )
+    if impl in UNPORTED_IMPLS:
+        raise ValueError(
+            f"--impl {impl} is not yet ported; see ROADMAP.md (ported on "
+            f"one device: {', '.join(('auto',) + impls)})"
         )
     raise ValueError(
         f"--impl must be one of {('auto',) + impls}, got {impl!r}"
@@ -219,9 +262,8 @@ def _validate(cfg: StencilConfig) -> StencilConfig:
         raise ValueError(f"--chunk must be >= 1, got {cfg.chunk}")
     reference.check_bc(cfg.bc)
     torch_dtype(cfg.dtype)
-    cfg = dataclasses.replace(
-        cfg, impl=resolve_impl(cfg.impl, distributed=cfg.mesh is not None)
-    )
+    cfg = dataclasses.replace(cfg, impl=resolve_impl(
+        cfg.impl, cfg.mesh is not None, cfg.dim, cfg.points))
     if cfg.impl == "multi":
         if cfg.iters % cfg.t_steps != 0:
             raise ValueError(
@@ -239,7 +281,7 @@ def _validate(cfg: StencilConfig) -> StencilConfig:
             if cfg.points:
                 raise ValueError(
                     f"--impl multi is not available for --points "
-                    f"{cfg.points} (choices: {kernels.IMPLS})"
+                    f"{cfg.points} (choices: {single_device_impls(kernels)})"
                 )
             raise ValueError(
                 f"--impl multi in {cfg.dim}D (the wavefront temporal "
@@ -247,10 +289,12 @@ def _validate(cfg: StencilConfig) -> StencilConfig:
             )
         if cfg.pack != "fused":
             raise ValueError("--pack applies to a 3D mesh run: pass --mesh")
-        if cfg.impl == "block" and cfg.chunk is not None:
+        if cfg.impl == "wave":
+            check_wave_bc(cfg.bc)
+        if cfg.impl not in CHUNK_DEFAULTS and cfg.chunk is not None:
             raise ValueError(
-                "--chunk applies to --impl stream; the block kernels "
-                "choose their own launch grid"
+                f"--chunk applies to --impl {'|'.join(CHUNK_DEFAULTS)}; "
+                f"--impl {cfg.impl} chooses its own launch grid"
             )
     return cfg
 
@@ -339,19 +383,18 @@ def run_single_device(cfg: StencilConfig) -> dict:
     u0 = to_numpy_field(u_dev)
     multi = cfg.impl == "multi"
     key = "planes_per_chunk" if cfg.dim == 3 else "rows_per_chunk"
-    if cfg.impl == "block":
-        # the block kernels take no chunk, and their rows carry none
-        kwargs, chunk_fields = {}, {}
-    else:
+    if cfg.impl in CHUNK_DEFAULTS:
         if cfg.chunk is None:
-            default = (kernels.default_multi_chunk if multi
-                       else kernels.default_chunk)
-            chunk = default(cfg.global_shape)
-            chunk_source = "auto"
+            default = getattr(kernels, CHUNK_DEFAULTS[cfg.impl])
+            chunk, chunk_source = default(cfg.global_shape), "auto"
         else:
             chunk, chunk_source = cfg.chunk, "user"
         kwargs = {key: chunk}
         chunk_fields = {"chunk": chunk, "chunk_source": chunk_source}
+    else:
+        # the block kernels and the torch arm take no chunk, and their
+        # rows carry none
+        kwargs, chunk_fields = {}, {}
     traffic = stencil_bytes_per_iter(cfg.global_shape, u_dev.element_size())
     base = {
         "backend": cfg.backend,

@@ -81,26 +81,71 @@ __device__ __forceinline__ int wrap(int i, int n) {
 //
 // Grid-stride over the flat field; the grid size is set by the chunk
 // (rows of 128 elements per block, the counterpart of rows_per_chunk).
-// Each thread reads its two neighbours: neighbouring threads read
-// neighbouring addresses, so a warp's three loads fall on the same few
-// cache lines and DRAM sees each element about once per step.
+//   kCarry = false (`stream`): each thread reads its two neighbours;
+//     neighbouring threads read neighbouring addresses, so a warp's loads
+//     fall on the same few cache lines and DRAM sees each element about
+//     once per step.
+//   kCarry = true (`stream2`): the TPU arm's column-strip carry
+//     (colfix=True: _flat_shift_prev_colfix / _flat_shift_next_colfix, which
+//     roll the whole block once by lanes and only the edge column by
+//     sublanes). A warp holds runs of 32 consecutive cells; each thread
+//     loads its own cell once, its neighbours come from the lanes beside
+//     it (__shfl_up_sync / __shfl_down_sync, the lane roll), and only a
+//     run's two edge carries, lane 0's previous cell and lane 31's next,
+//     are read from memory (the strip). One load a cell instead of two;
+//     the result is bitwise the same.
 // ---------------------------------------------------------------------------
-template <typename T, bool kPeriodic>
+// runs of 32 cells a warp of the carry form loads before it computes
+constexpr int kCarryRuns = 4;
+
+template <typename T, bool kPeriodic, bool kCarry>
 __global__ void __launch_bounds__(256)
     jacobi1d_kernel(const T* __restrict__ u, T* __restrict__ out,
                     int64_t n) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
-    if (!kPeriodic && (i == 0 || i == n - 1)) {
-      out[i] = u[i];
-      continue;
+  if constexpr (!kCarry) {
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+         i < n; i += stride) {
+      if (!kPeriodic && (i == 0 || i == n - 1)) {
+        out[i] = u[i];
+        continue;
+      }
+      const int64_t ip = (i == 0) ? n - 1 : i - 1;
+      const int64_t in = (i == n - 1) ? 0 : i + 1;
+      out[i] = narrow<T>(
+          __fmul_rn(__fadd_rn(widen(u[ip]), widen(u[in])), 0.5f));
     }
-    const int64_t ip = (i == 0) ? n - 1 : i - 1;
-    const int64_t in = (i == n - 1) ? 0 : i + 1;
-    out[i] = narrow<T>(
-        __fmul_rn(__fadd_rn(widen(u[ip]), widen(u[in])), 0.5f));
+  } else {
+    // a warp takes kCarryRuns runs of 32 consecutive cells an iteration,
+    // their loads in flight together; the loop bound is the same for
+    // every lane, so the warp stays whole for the shuffles
+    const int lane = threadIdx.x % 32;
+    for (int64_t w = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x - lane) * kCarryRuns;
+         w < n; w += stride * kCarryRuns) {
+      float self[kCarryRuns];
+#pragma unroll
+      for (int r = 0; r < kCarryRuns; ++r) {
+        const int64_t i = w + r * 32 + lane;
+        self[r] = i < n ? widen(u[i]) : 0.0f;
+      }
+#pragma unroll
+      for (int r = 0; r < kCarryRuns; ++r) {
+        const int64_t i = w + r * 32 + lane;
+        float prev = __shfl_up_sync(0xffffffffu, self[r], 1);
+        float next = __shfl_down_sync(0xffffffffu, self[r], 1);
+        if (i >= n) continue;
+        if (!kPeriodic && (i == 0 || i == n - 1)) {
+          out[i] = narrow<T>(self[r]);
+          continue;
+        }
+        // the strip: the run's two edge carries come from memory
+        if (lane == 0 || i == 0) prev = widen(u[i == 0 ? n - 1 : i - 1]);
+        if (lane == 31 || i == n - 1) next = widen(u[i == n - 1 ? 0 : i + 1]);
+        out[i] = narrow<T>(__fmul_rn(__fadd_rn(prev, next), 0.5f));
+      }
+    }
   }
 }
 
@@ -263,7 +308,7 @@ __global__ void __launch_bounds__(kTX3* kTY3)
   }
 }
 
-template <typename T>
+template <typename T, bool kCarry>
 void launch1d(const void* u, void* out, int64_t n, bool periodic,
               int rows_per_chunk, cudaStream_t stream) {
   const int threads = 256;
@@ -274,9 +319,11 @@ void launch1d(const void* u, void* out, int64_t n, bool periodic,
   auto* src = static_cast<const T*>(u);
   auto* dst = static_cast<T*>(out);
   if (periodic) {
-    jacobi1d_kernel<T, true><<<blocks, threads, 0, stream>>>(src, dst, n);
+    jacobi1d_kernel<T, true, kCarry>
+        <<<blocks, threads, 0, stream>>>(src, dst, n);
   } else {
-    jacobi1d_kernel<T, false><<<blocks, threads, 0, stream>>>(src, dst, n);
+    jacobi1d_kernel<T, false, kCarry>
+        <<<blocks, threads, 0, stream>>>(src, dst, n);
   }
 }
 
@@ -316,6 +363,28 @@ void launch3d(const void* u, void* out, int nz, int ny, int nx,
 // grid.y and grid.z are limited to 65535 blocks
 constexpr int kMaxGridYZ = 65535;
 
+template <bool kCarry>
+int jacobi1d_launch(const void* u, void* out, int64_t n, int dtype,
+                    int periodic, int rows_per_chunk, void* stream) {
+  if (n < 3 || rows_per_chunk < 1) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      launch1d<float, kCarry>(u, out, n, periodic, rows_per_chunk, s);
+      break;
+    case kBFloat16:
+      launch1d<__nv_bfloat16, kCarry>(u, out, n, periodic, rows_per_chunk,
+                                      s);
+      break;
+    case kFloat16:
+      launch1d<__half, kCarry>(u, out, n, periodic, rows_per_chunk, s);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface. Each launcher enqueues one kernel on `stream` and returns
@@ -326,22 +395,14 @@ extern "C" {
 
 int tc_jacobi1d_stream(const void* u, void* out, int64_t n, int dtype,
                        int periodic, int rows_per_chunk, void* stream) {
-  if (n < 3 || rows_per_chunk < 1) return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      launch1d<float>(u, out, n, periodic, rows_per_chunk, s);
-      break;
-    case kBFloat16:
-      launch1d<__nv_bfloat16>(u, out, n, periodic, rows_per_chunk, s);
-      break;
-    case kFloat16:
-      launch1d<__half>(u, out, n, periodic, rows_per_chunk, s);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  return jacobi1d_launch<false>(u, out, n, dtype, periodic, rows_per_chunk,
+                                stream);
+}
+
+int tc_jacobi1d_stream2(const void* u, void* out, int64_t n, int dtype,
+                        int periodic, int rows_per_chunk, void* stream) {
+  return jacobi1d_launch<true>(u, out, n, dtype, periodic, rows_per_chunk,
+                               stream);
 }
 
 int tc_jacobi2d_stream(const void* u, void* out, int ny, int nx, int dtype,

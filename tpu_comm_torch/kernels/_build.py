@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` listed in :data:`SOURCES` is compiled by ``nvcc`` into
 a shared library with a plain C interface under ``build/torch_ext/`` at
 the root of the checkout (ignored by git). One ``nvcc`` per source, all
-started together. A library is named by a hash of its source, the flags
-and the compiler, so an edited source rebuilds and an unchanged one is
-loaded as it is. Nothing here runs at import time: the first kernel
+started together. A library is named by a hash of its source, the
+shared headers (``csrc/*.cuh``), the flags and the compiler, so an
+edited source or header rebuilds and an unchanged one is loaded as it
+is. Nothing here runs at import time: the first kernel
 launch calls :func:`libraries`.
 
 No PyTorch header is compiled (a source that includes ``torch/extension.h``
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 SOURCES = ("jacobi_stream.cu", "membw.cu", "jacobi_block.cu", "pack.cu",
-           "box.cu", "multi.cu")
+           "box.cu", "multi.cu", "grid.cu", "wave.cu")
 NVCC_FLAGS = (
     "-O3",
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -44,6 +45,11 @@ _N = ctypes.c_int64
 #: a cudaError_t as int. Every source also exports ``tc_error_string``.
 SIGNATURES = {
     "tc_jacobi1d_stream": (_P, _P, _N, _I, _I, _I, _P),
+    "tc_jacobi1d_stream2": (_P, _P, _N, _I, _I, _I, _P),
+    "tc_jacobi1d_grid": (_P, _P, _N, _I, _I, _I, _P),
+    "tc_jacobi2d_grid": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "tc_jacobi1d_wave": (_P, _P, _N, _I, _I, _I, _P),
+    "tc_jacobi2d_wave": (_P, _P, _I, _I, _I, _I, _I, _P),
     "tc_jacobi2d_stream": (_P, _P, _I, _I, _I, _I, _I, _P),
     "tc_jacobi3d_stream": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tc_jacobi1d_block": (_P, _P, _N, _I, _I, _P),
@@ -84,6 +90,8 @@ def nvcc_path() -> str:
 def _target(src: Path, nvcc: str) -> Path:
     h = hashlib.sha256()
     h.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update("\0".join((nvcc, *NVCC_FLAGS)).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

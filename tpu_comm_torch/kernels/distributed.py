@@ -63,6 +63,13 @@ from tpu_comm_torch.comm import halo
 from tpu_comm_torch.domain import Decomposition
 from tpu_comm_torch.kernels import BOX, kernels_for
 from tpu_comm_torch.kernels.pack import PACK_IMPLS
+from tpu_comm_torch.kernels.padded import (  # noqa: F401
+    FROM_PADDED,
+    rounded,
+    stencil9_from_padded,
+    stencil27_from_padded,
+    stencil_from_padded,
+)
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import check_t_steps
 from tpu_comm_torch.topo import CartMesh
@@ -71,93 +78,6 @@ from tpu_comm_torch.topo import CartMesh
 IMPLS = ("torch", "overlap", "block", "stream", "multi")
 #: options of the JAX ``make_local_step`` that wait for a later slice
 UNPORTED_OPTIONS = ("halo_wire", "halo_parts", "halo_width", "fuse_steps")
-
-
-def _rounded(x: float, dtype: torch.dtype) -> float:
-    """``x`` rounded to the field's dtype (``jnp.asarray(x, dtype)``), as
-    an exact Python float: the stencils' ``1/(2d)``, 1/8 and 1/26."""
-    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
-
-
-def stencil_from_padded(padded: torch.Tensor,
-                        out: torch.Tensor | None = None) -> torch.Tensor:
-    """2d-point Jacobi update of the interior of a 1-cell-padded block.
-
-    ``padded`` has every axis grown by 2; the result (written into
-    ``out`` when given) has the original block shape: the mean of the 2d
-    face neighbours, pairs summed axis by axis in the field's dtype.
-    """
-    d = padded.dim()
-    acc = None
-    for axis in range(d):
-        inner = padded
-        for a in range(d):
-            if a != axis:
-                inner = inner.narrow(a, 1, padded.shape[a] - 2)
-        n = padded.shape[axis] - 2
-        term = inner.narrow(axis, 0, n) + inner.narrow(axis, 2, n)
-        acc = term if acc is None else acc + term
-    return torch.mul(acc, _rounded(1.0 / (2 * d), padded.dtype), out=out)
-
-
-def stencil9_from_padded(padded: torch.Tensor,
-                         out: torch.Tensor | None = None) -> torch.Tensor:
-    """9-point (box) update of the interior of a 1-cell-padded 2D block,
-    in the field's dtype (written into ``out`` when given).
-
-    The diagonal slices reach the padded array's corners, which hold the
-    neighbours' data only when the ghosts came from the chained exchange.
-    The association is ``reference.jacobi9_step``'s.
-    """
-    if padded.dim() != 2:
-        raise ValueError(
-            f"9-point stencil needs a 2D block, got {padded.dim()}D"
-        )
-    up, down = padded[:-2, 1:-1], padded[2:, 1:-1]
-    left, right = padded[1:-1, :-2], padded[1:-1, 2:]
-    ul, ur = padded[:-2, :-2], padded[:-2, 2:]
-    dl, dr = padded[2:, :-2], padded[2:, 2:]
-    return torch.mul(
-        ((up + down) + (left + right)) + ((ul + dr) + (ur + dl)), 0.125,
-        out=out,
-    )
-
-
-def stencil27_from_padded(padded: torch.Tensor,
-                          out: torch.Tensor | None = None) -> torch.Tensor:
-    """27-point (box) update of the interior of a 1-cell-padded 3D block,
-    in the field's dtype with 1/26 rounded to it (written into ``out``
-    when given).
-
-    The diagonal slices reach the padded array's edges (two chained
-    exchanges) and corners (three). The association is
-    ``reference.jacobi27_step``'s.
-    """
-    if padded.dim() != 3:
-        raise ValueError(
-            f"27-point stencil needs a 3D block, got {padded.dim()}D"
-        )
-    nz, ny, nx = (s - 2 for s in padded.shape)
-
-    def sh(dz, dy, dx):
-        return padded[1 + dz:1 + dz + nz, 1 + dy:1 + dy + ny,
-                      1 + dx:1 + dx + nx]
-
-    def box8(dz):
-        return (
-            (sh(dz, -1, 0) + sh(dz, 1, 0)) + (sh(dz, 0, -1) + sh(dz, 0, 1))
-        ) + (
-            (sh(dz, -1, -1) + sh(dz, 1, 1)) + (sh(dz, -1, 1) + sh(dz, 1, -1))
-        )
-
-    return torch.mul(
-        ((box8(-1) + sh(-1, 0, 0)) + (box8(1) + sh(1, 0, 0))) + box8(0),
-        _rounded(1.0 / 26.0, padded.dtype), out=out,
-    )
-
-
-FROM_PADDED = {"star": stencil_from_padded, "9pt": stencil9_from_padded,
-               "27pt": stencil27_from_padded}
 
 
 def ring_planes(cart: CartMesh, shape, t: int = 0):
@@ -212,7 +132,7 @@ def faces_from_ghosts(new: torch.Tensor, block: torch.Tensor,
     skipped: :func:`dirichlet_freeze` restores it next.
     """
     nd = new.dim()
-    inv = _rounded(1.0 / (2 * nd), new.dtype)
+    inv = rounded(1.0 / (2 * nd), new.dtype)
     ghost = {axis: (lo, hi) for axis, lo, hi in ghosts}
     for axis in range(nd):
         n = block.shape[axis]
@@ -376,7 +296,7 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
             raise ValueError(
                 f"stencil={stencil!r} needs a {want_nd}D mesh, got {nd}D"
             )
-        if impl == "pallas-wave":
+        if impl == "wave":
             raise ValueError(
                 f"impl {impl!r} is not yet ported for stencil={stencil!r}; "
                 f"see ROADMAP.md"
@@ -445,7 +365,7 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
 
         def update(block, out):
             return kernel(block, bc="periodic", out=out)
-    elif impl in ("partitioned", "pallas-wave"):
+    elif impl in ("partitioned", "wave"):
         raise ValueError(f"impl {impl!r} is not yet ported; see ROADMAP.md")
     else:
         raise ValueError(f"unknown distributed impl {impl!r}")

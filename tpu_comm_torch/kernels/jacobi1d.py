@@ -1,10 +1,16 @@
-"""1D 3-point Jacobi step: plain PyTorch version + hand-written CUDA kernel.
+"""1D 3-point Jacobi step: plain PyTorch versions + hand-written CUDA
+kernels.
 
-Port of ``tpu_comm/kernels/jacobi1d.py``'s ``pallas-stream`` arm
+Port of every arm of ``tpu_comm/kernels/jacobi1d.py``'s ``STEPS`` and of
+its ``pallas-multi``: ``lax`` (``step_lax``), ``pallas-stream``
 (``step_pallas_stream`` and its kernel ``_jacobi1d_stream_kernel``),
-``pallas`` arm (``step_pallas`` and its kernel ``_jacobi1d_kernel``) and
-``pallas-multi`` arm (``step_pallas_multi``, its kernel
-``_jacobi1d_multi_kernel`` and its edge fix ``_edge_cone_fix_multi``).
+``pallas-stream2`` (the same kernel with ``colfix=True``), ``pallas``
+(``step_pallas``, ``_jacobi1d_kernel``), ``pallas-grid``
+(``step_pallas_grid``, ``_jacobi1d_grid_kernel`` and its endpoint fix
+``_fix_global_endpoints``), ``pallas-wave`` (``step_pallas_wave``,
+``_jacobi1d_wave_kernel``) and ``pallas-multi`` (``step_pallas_multi``,
+its kernel ``_jacobi1d_multi_kernel`` and its edge fix
+``_edge_cone_fix_multi``).
 
 Update rule (Jacobi, ping-pong):  u'[i] = (u[i-1] + u[i+1]) / 2
 Boundary: ``dirichlet`` freezes u[0] and u[N-1]; ``periodic`` wraps.
@@ -12,9 +18,19 @@ Boundary: ``dirichlet`` freezes u[0] and u[N-1]; ``periodic`` wraps.
 - ``step_plain``  — ``torch.roll`` expression in float32, narrowed once.
   It repeats the TPU stream kernel's arithmetic (not JAX's ``step_lax``,
   which adds in the field dtype), and is what the CPU runs.
+- ``step_torch``  — JAX's ``step_lax``: plain PyTorch in the field's
+  dtype (``kernels/padded.py``), no kernel; the ``torch`` arm.
 - ``step_stream`` — the wrapper of ``jacobi1d_kernel`` in
   ``csrc/jacobi_stream.cu``: a CUDA tensor goes to the kernel, a CPU
   tensor to ``step_plain``.
+- ``step_stream2`` — the same kernel in its column-strip carry form
+  (each cell loaded once, its neighbours by warp shuffles): bitwise
+  ``step_stream``'s result.
+- ``step_grid``   — the wrapper of ``jacobi1d_grid_kernel`` in
+  ``csrc/grid.cu``: one window a CTA, copied in whole, then computed.
+- ``step_wave``   — the wrapper of ``jacobi1d_wave_kernel`` in
+  ``csrc/wave.cu``: each CTA streams its range of blocks through a ring
+  in shared memory. Dirichlet only, on every device, as JAX's arm.
 - ``step_block``  — the wrapper of ``jacobi1d_block_kernel`` in
   ``csrc/jacobi_block.cu``, the port of the TPU's whole-field kernel:
   the same function by another design (see the source). It is the
@@ -36,13 +52,19 @@ from tpu_comm_torch.kernels import (
     run_steps_multi,
     run_steps_to_convergence,
 )
+from tpu_comm_torch.kernels import padded
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
     check_kernel_args,
+    check_staged_smem,
+    check_wave_bc,
     f32_compute,
+    grid_smem,
     launch_multi,
     launch_stencil,
     narrow_store,
+    staged_default_rows,
+    wave_smem,
 )
 
 #: default rows of 128 elements each CUDA block covers (the counterpart
@@ -67,6 +89,20 @@ def default_multi_chunk(shape: tuple) -> int:
     """The chunk ``step_multi`` uses when the caller passes none."""
     del shape
     return MULTI_DEFAULT_ROWS
+
+
+def default_grid_chunk(shape: tuple) -> int:
+    """The rows of 128 cells a ``step_grid`` window holds when the caller
+    passes none: sized to shared memory (``tiling.STAGED_SMEM_TARGET``)."""
+    del shape
+    return staged_default_rows(grid_smem, 1)
+
+
+def default_wave_chunk(shape: tuple) -> int:
+    """The rows of 128 cells a ``step_wave`` ring block holds when the
+    caller passes none: sized to shared memory."""
+    del shape
+    return staged_default_rows(wave_smem, 1)
 
 
 def _step_f32(a: torch.Tensor, bc: str) -> torch.Tensor:
@@ -112,6 +148,84 @@ def step_stream(u: torch.Tensor, bc: str = "dirichlet",
 step_stream.launches = 0
 
 
+def step_torch(u: torch.Tensor, bc: str = "dirichlet",
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 1D step in plain PyTorch in the field's dtype (JAX's
+    ``step_lax``), on any device; no kernel."""
+    return padded.step_torch(u, bc, "star", out)
+
+
+def step_stream2(u: torch.Tensor, bc: str = "dirichlet",
+                 rows_per_chunk: int | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 1D step by the stream kernel's column-strip carry form: the
+    CUDA kernel for a CUDA tensor, ``step_plain`` for a CPU tensor.
+    Writes into ``out`` (which must not alias ``u``) when given.
+    ``step_stream2.launches`` counts kernel launches."""
+    check_bc(bc)
+    if u.device.type == "cpu":
+        return step_plain(u, bc, out)
+    out = check_kernel_args(u, 1, out)
+    if rows_per_chunk is None:
+        rows_per_chunk = default_chunk(u.shape)
+    launch_stencil("tc_jacobi1d_stream2", u, out, bc, rows_per_chunk)
+    step_stream2.launches += 1
+    return out
+
+
+step_stream2.launches = 0
+
+
+def step_grid(u: torch.Tensor, bc: str = "dirichlet",
+              rows_per_chunk: int | None = None,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 1D step by whole windows: the CUDA kernel for a CUDA tensor,
+    ``step_plain`` for a CPU tensor. A CTA owns ``rows_per_chunk`` rows
+    of 128 cells (default :func:`default_grid_chunk`). Writes into
+    ``out`` (which must not alias ``u``) when given.
+    ``step_grid.launches`` counts kernel launches."""
+    check_bc(bc)
+    if u.device.type == "cpu":
+        return step_plain(u, bc, out)
+    out = check_kernel_args(u, 1, out)
+    if rows_per_chunk is None:
+        rows_per_chunk = default_grid_chunk(u.shape)
+    check_staged_smem("grid", grid_smem(1, rows_per_chunk, u.element_size()),
+                      rows_per_chunk)
+    launch_stencil("tc_jacobi1d_grid", u, out, bc, rows_per_chunk)
+    step_grid.launches += 1
+    return out
+
+
+step_grid.launches = 0
+
+
+def step_wave(u: torch.Tensor, bc: str = "dirichlet",
+              rows_per_chunk: int | None = None,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 1D step by ring-buffered block streams: the CUDA kernel for a
+    CUDA tensor, ``step_plain`` for a CPU tensor; dirichlet only, on
+    either. A ring block is ``rows_per_chunk`` rows of 128 cells (default
+    :func:`default_wave_chunk`). Writes into ``out`` (which must not
+    alias ``u``) when given. ``step_wave.launches`` counts kernel
+    launches."""
+    check_bc(bc)
+    check_wave_bc(bc)
+    if u.device.type == "cpu":
+        return step_plain(u, bc, out)
+    out = check_kernel_args(u, 1, out)
+    if rows_per_chunk is None:
+        rows_per_chunk = default_wave_chunk(u.shape)
+    check_staged_smem("wave", wave_smem(1, rows_per_chunk, u.element_size()),
+                      rows_per_chunk)
+    launch_stencil("tc_jacobi1d_wave", u, out, bc, rows_per_chunk)
+    step_wave.launches += 1
+    return out
+
+
+step_wave.launches = 0
+
+
 def step_block(u: torch.Tensor, bc: str = "dirichlet",
                out: torch.Tensor | None = None) -> torch.Tensor:
     """One 1D step by the whole-field kernel: the CUDA kernel for a CUDA
@@ -154,7 +268,8 @@ def step_multi(u: torch.Tensor, bc: str = "dirichlet", t_steps: int = 8,
 
 step_multi.launches = 0
 
-STEPS = {"stream": step_stream, "block": step_block}
+STEPS = {"torch": step_torch, "stream": step_stream, "block": step_block,
+         "grid": step_grid, "stream2": step_stream2, "wave": step_wave}
 IMPLS = tuple(STEPS)
 
 

@@ -1,19 +1,33 @@
-"""2D 5-point Jacobi step: plain PyTorch version + hand-written CUDA kernel.
+"""2D 5-point Jacobi step: plain PyTorch versions + hand-written CUDA
+kernels.
 
-Port of ``tpu_comm/kernels/jacobi2d.py``'s ``pallas-stream`` arm
+Port of every arm of ``tpu_comm/kernels/jacobi2d.py``'s ``STEPS`` and of
+its ``pallas-multi``: ``lax`` (``step_lax``), ``pallas-stream``
 (``step_pallas_stream`` and its kernel ``_jacobi2d_stream_kernel``),
-``pallas`` arm (``step_pallas`` and its kernel ``_jacobi2d_kernel``) and
-``pallas-multi`` arm (``step_pallas_multi``, its kernel
-``_jacobi2d_multi_kernel`` and its edge fix ``_edge_band_fix_multi_2d``).
+``pallas`` (``step_pallas``, ``_jacobi2d_kernel``), ``pallas-grid``
+(``step_pallas_grid``, ``_jacobi2d_grid_kernel`` and its top and bottom
+row recompute), ``pallas-wave`` (``step_pallas_wave``,
+``_jacobi2d_wave_kernel``) and ``pallas-multi`` (``step_pallas_multi``,
+its kernel ``_jacobi2d_multi_kernel`` and its edge fix
+``_edge_band_fix_multi_2d``).
 
 Update rule: u'[i,j] = ((u[i-1,j] + u[i+1,j]) + (u[i,j-1] + u[i,j+1])) / 4
 Boundary: ``dirichlet`` freezes the one-cell ring; ``periodic`` wraps.
 
 - ``step_plain``  — ``torch.roll`` expression in float32, narrowed once
   (the TPU stream kernel's arithmetic); what the CPU runs.
+- ``step_torch``  — JAX's ``step_lax``: plain PyTorch in the field's
+  dtype (``kernels/padded.py``), no kernel; the ``torch`` arm.
 - ``step_stream`` — the wrapper of ``jacobi2d_kernel`` in
   ``csrc/jacobi_stream.cu``: a CUDA tensor goes to the kernel, a CPU
   tensor to ``step_plain``.
+- ``step_grid``   — the wrapper of ``jacobi2d_grid_kernel`` in
+  ``csrc/grid.cu``: one window (a tile of rows x 256 columns and its
+  halo) a CTA, copied in whole, then computed.
+- ``step_wave``   — the wrapper of ``jacobi2d_wave_kernel`` in
+  ``csrc/wave.cu``: each CTA streams a range of row blocks of a
+  256-column strip through a ring in shared memory. Dirichlet only, on
+  every device, as JAX's arm.
 - ``step_block``  — the wrapper of ``jacobi2d_block_kernel`` in
   ``csrc/jacobi_block.cu``, the port of the TPU's whole-field kernel:
   the same function by another design (see the source). It is the
@@ -35,13 +49,20 @@ from tpu_comm_torch.kernels import (
     run_steps_multi,
     run_steps_to_convergence,
 )
+from tpu_comm_torch.kernels import padded
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
+    MAX_GRID_Y,
     check_kernel_args,
+    check_staged_smem,
+    check_wave_bc,
     f32_compute,
+    grid_smem,
     launch_multi,
     launch_stencil,
     narrow_store,
+    staged_default_rows,
+    wave_smem,
 )
 
 #: rows of its 32-column strip each CUDA block owns when the caller
@@ -64,6 +85,20 @@ def default_multi_chunk(shape: tuple) -> int:
     """The tile rows ``step_multi`` uses when the caller passes none."""
     del shape
     return MULTI_DEFAULT_TILE[0]
+
+
+def default_grid_chunk(shape: tuple) -> int:
+    """The tile rows of a ``step_grid`` window when the caller passes
+    none: sized to shared memory (``tiling.STAGED_SMEM_TARGET``), raised
+    where the grid's y extent would not cover the field."""
+    return max(staged_default_rows(grid_smem, 2), -(-shape[0] // MAX_GRID_Y))
+
+
+def default_wave_chunk(shape: tuple) -> int:
+    """The rows of a ``step_wave`` ring block when the caller passes none:
+    sized to shared memory."""
+    del shape
+    return staged_default_rows(wave_smem, 2)
 
 
 def freeze_ring(new: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -131,6 +166,68 @@ def step_stream(u: torch.Tensor, bc: str = "dirichlet",
 step_stream.launches = 0
 
 
+def step_torch(u: torch.Tensor, bc: str = "dirichlet",
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 2D step in plain PyTorch in the field's dtype (JAX's
+    ``step_lax``), on any device; no kernel."""
+    return padded.step_torch(u, bc, "star", out)
+
+
+def step_grid(u: torch.Tensor, bc: str = "dirichlet",
+              rows_per_chunk: int | None = None,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 2D step by whole windows: the CUDA kernel for a CUDA tensor,
+    ``step_plain`` for a CPU tensor. A CTA owns a tile of
+    ``rows_per_chunk`` rows (default :func:`default_grid_chunk`) x 256
+    columns. Writes into ``out`` (which must not alias ``u``) when given.
+    ``step_grid.launches`` counts kernel launches."""
+    check_bc(bc)
+    if u.device.type == "cpu":
+        return step_plain(u, bc, out)
+    out = check_kernel_args(u, 2, out)
+    if rows_per_chunk is None:
+        rows_per_chunk = default_grid_chunk(u.shape)
+    check_staged_smem("grid", grid_smem(2, rows_per_chunk, u.element_size()),
+                      rows_per_chunk)
+    if -(-u.shape[0] // max(rows_per_chunk, 1)) > MAX_GRID_Y:
+        raise ValueError(
+            f"{u.shape[0]} rows need tiles of more than {rows_per_chunk} "
+            f"rows (at most {MAX_GRID_Y} tiles down the field)"
+        )
+    launch_stencil("tc_jacobi2d_grid", u, out, bc, rows_per_chunk)
+    step_grid.launches += 1
+    return out
+
+
+step_grid.launches = 0
+
+
+def step_wave(u: torch.Tensor, bc: str = "dirichlet",
+              rows_per_chunk: int | None = None,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 2D step by ring-buffered row-block streams: the CUDA kernel for
+    a CUDA tensor, ``step_plain`` for a CPU tensor; dirichlet only, on
+    either. A ring block is ``rows_per_chunk`` rows (default
+    :func:`default_wave_chunk`) of a 256-column strip. Writes into
+    ``out`` (which must not alias ``u``) when given. ``step_wave.launches``
+    counts kernel launches."""
+    check_bc(bc)
+    check_wave_bc(bc)
+    if u.device.type == "cpu":
+        return step_plain(u, bc, out)
+    out = check_kernel_args(u, 2, out)
+    if rows_per_chunk is None:
+        rows_per_chunk = default_wave_chunk(u.shape)
+    check_staged_smem("wave", wave_smem(2, rows_per_chunk, u.element_size()),
+                      rows_per_chunk)
+    launch_stencil("tc_jacobi2d_wave", u, out, bc, rows_per_chunk)
+    step_wave.launches += 1
+    return out
+
+
+step_wave.launches = 0
+
+
 def step_block(u: torch.Tensor, bc: str = "dirichlet",
                out: torch.Tensor | None = None) -> torch.Tensor:
     """One 2D step by the whole-field kernel: the CUDA kernel for a CUDA
@@ -170,7 +267,8 @@ def step_multi(u: torch.Tensor, bc: str = "dirichlet", t_steps: int = 8,
 
 step_multi.launches = 0
 
-STEPS = {"stream": step_stream, "block": step_block}
+STEPS = {"torch": step_torch, "stream": step_stream, "block": step_block,
+         "grid": step_grid, "wave": step_wave}
 IMPLS = tuple(STEPS)
 
 

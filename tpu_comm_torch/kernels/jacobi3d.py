@@ -7,6 +7,8 @@ Port of ``tpu_comm/kernels/jacobi3d.py``'s ``pallas-stream`` arm
 Update rule: u' = (((zm + zp) + (ym + yp)) + (xm + xp)) * f32(1/6)
 Boundary: ``dirichlet`` freezes the one-cell shell; ``periodic`` wraps.
 
+- ``step_torch``  — JAX's ``step_lax``: plain PyTorch in the field's
+  dtype (``kernels/padded.py``), no kernel; the ``torch`` arm.
 - ``step_plain``  — ``torch.roll`` expression in float32, narrowed once
   (the TPU stream kernel's arithmetic); what the CPU runs.
 - ``step_stream`` — the wrapper of ``jacobi3d_kernel`` in
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from tpu_comm_torch.kernels import run_steps, run_steps_to_convergence
+from tpu_comm_torch.kernels import padded
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
     check_kernel_args,
@@ -101,7 +104,14 @@ def step_block(u: torch.Tensor, bc: str = "dirichlet",
 
 step_block.launches = 0
 
-STEPS = {"stream": step_stream, "block": step_block}
+def step_torch(u: torch.Tensor, bc: str = "dirichlet",
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 3D step in plain PyTorch in the field's dtype (JAX's
+    ``step_lax``), on any device; no kernel."""
+    return padded.step_torch(u, bc, "star", out)
+
+
+STEPS = {"torch": step_torch, "stream": step_stream, "block": step_block}
 IMPLS = tuple(STEPS)
 
 

@@ -11,6 +11,8 @@ in-plane 8-neighbour sum in the 9-point stencil's association and
 full9(p) = box8(p) + p.
 Boundary: ``dirichlet`` freezes the one-cell shell; ``periodic`` wraps.
 
+- ``step_torch``  — JAX's ``step_lax``: plain PyTorch in the field's
+  dtype (``kernels/padded.py``), no kernel; the ``torch`` arm.
 - ``step_plain``  — ``torch.roll`` expression in float32, narrowed once
   (the TPU kernels' arithmetic); what the CPU runs.
 - ``step_stream`` — the wrapper of ``stencil27_stream_kernel`` in
@@ -29,6 +31,7 @@ import torch
 
 from tpu_comm_torch.kernels import run_steps, run_steps_to_convergence
 from tpu_comm_torch.kernels.jacobi3d import default_chunk
+from tpu_comm_torch.kernels import padded
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
     check_kernel_args,
@@ -107,7 +110,14 @@ def step_block(u: torch.Tensor, bc: str = "dirichlet",
 
 step_block.launches = 0
 
-STEPS = {"stream": step_stream, "block": step_block}
+def step_torch(u: torch.Tensor, bc: str = "dirichlet",
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 27-point step in plain PyTorch in the field's dtype (JAX's
+    ``step_lax``), on any device; no kernel."""
+    return padded.step_torch(u, bc, "27pt", out)
+
+
+STEPS = {"torch": step_torch, "stream": step_stream, "block": step_block}
 IMPLS = tuple(STEPS)
 
 

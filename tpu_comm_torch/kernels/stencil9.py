@@ -11,6 +11,8 @@ u' = (((up + down) + (left + right)) + ((ul + dr) + (ur + dl))) * 1/8,
 the diagonals being horizontal rolls of the row-shifted arrays.
 Boundary: ``dirichlet`` freezes the one-cell ring; ``periodic`` wraps.
 
+- ``step_torch``  — JAX's ``step_lax``: plain PyTorch in the field's
+  dtype (``kernels/padded.py``), no kernel; the ``torch`` arm.
 - ``step_plain``  — ``torch.roll`` expression in float32, narrowed once
   (the TPU kernels' arithmetic); what the CPU runs.
 - ``step_stream`` — the wrapper of ``stencil9_stream_kernel`` in
@@ -45,6 +47,7 @@ from tpu_comm_torch.kernels.jacobi2d import (  # noqa: F401
     freeze_ring,
     launch_multi_2d,
 )
+from tpu_comm_torch.kernels import padded
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
     check_kernel_args,
@@ -143,7 +146,14 @@ def step_multi(u: torch.Tensor, bc: str = "dirichlet", t_steps: int = 8,
 
 step_multi.launches = 0
 
-STEPS = {"stream": step_stream, "block": step_block}
+def step_torch(u: torch.Tensor, bc: str = "dirichlet",
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 9-point step in plain PyTorch in the field's dtype (JAX's
+    ``step_lax``), on any device; no kernel."""
+    return padded.step_torch(u, bc, "9pt", out)
+
+
+STEPS = {"torch": step_torch, "stream": step_stream, "block": step_block}
 IMPLS = tuple(STEPS)
 
 

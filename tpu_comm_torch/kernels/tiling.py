@@ -211,6 +211,77 @@ MAX_SMEM_BYTES = 232448
 MAX_GRID_Y = 65535
 
 
+#: the dynamic shared memory the grid and wave kernels may ask for
+#: (``csrc/grid.cu``, ``csrc/wave.cu`` kMaxSmem: a block's 232448 bytes
+#: less room for their static barriers)
+STAGED_MAX_SMEM = MAX_SMEM_BYTES - 1024
+#: the 2D grid kernel's tile width and the 2D wave kernel's strip width,
+#: in columns (``csrc/grid.cu`` kTileX, ``csrc/wave.cu`` kStripX)
+STAGED_TILE_X = 256
+#: the wave kernels' ring slots (``csrc/wave.cu`` kSlots)
+WAVE_SLOTS = 4
+#: the shared memory the grid and wave kernels' default chunks give a
+#: float32 CTA (a 2-byte field takes about half): six fit an SM's 227 KB,
+#: 1536 of its 2048 threads, so copies stay in flight while a CTA
+#: computes. The counterpart of the TPU arms' VMEM budget
+#: (``_auto_rows_grid``, ``_auto_rows_wave``).
+STAGED_SMEM_TARGET = 36 * 1024
+
+
+def staged_bytes(cols: int, itemsize: int) -> int:
+    """Shared memory that stages ``cols`` columns of a row
+    (``csrc/staging.cuh`` staged_bytes: the row plus the slack that
+    keeps it at its global address modulo 16)."""
+    return (cols * itemsize + 32 + 15) // 16 * 16
+
+
+def grid_smem(dim: int, rows: int, itemsize: int) -> int:
+    """A grid kernel CTA's window: 1D ``rows`` x 128 cells and a halo cell
+    each side; 2D ``rows`` + 2 staged rows of the tile and its two halo
+    columns."""
+    if dim == 1:
+        return staged_bytes(rows * 128 + 2, itemsize)
+    return (rows + 2) * staged_bytes(STAGED_TILE_X + 2, itemsize)
+
+
+def wave_smem(dim: int, rows: int, itemsize: int) -> int:
+    """A wave kernel CTA's ring: ``WAVE_SLOTS`` blocks of ``rows`` x 128
+    cells (1D) or of ``rows`` staged strip rows, plus the two halo rows
+    (2D)."""
+    if dim == 1:
+        return WAVE_SLOTS * staged_bytes(rows * 128, itemsize)
+    return (WAVE_SLOTS * rows + 2) * staged_bytes(STAGED_TILE_X + 2, itemsize)
+
+
+def staged_default_rows(smem, dim: int) -> int:
+    """The most rows, a multiple of 8, whose float32 CTA ``smem(dim, rows,
+    4)`` stays within :data:`STAGED_SMEM_TARGET`."""
+    rows = 8
+    while smem(dim, rows + 8, 4) <= STAGED_SMEM_TARGET:
+        rows += 8
+    return rows
+
+
+def check_staged_smem(arm: str, smem: int, chunk: int) -> None:
+    """Refuse a chunk whose window or ring exceeds a CTA's shared
+    memory."""
+    if smem > STAGED_MAX_SMEM:
+        raise ValueError(
+            f"chunk {chunk}: the {arm} kernel's CTA would need {smem} bytes "
+            f"of shared memory; it may have {STAGED_MAX_SMEM}"
+        )
+
+
+def check_wave_bc(bc: str) -> None:
+    """The wave arm is dirichlet only, as JAX's ``pallas-wave``."""
+    if bc != "dirichlet":
+        raise ValueError(
+            "wave supports bc='dirichlet' only, as JAX's pallas-wave (its "
+            "frozen edges are the TPU pipeline's junk barrier); use stream "
+            "for periodic"
+        )
+
+
 def check_t_steps(t_steps: int) -> None:
     """The steps of a temporal-blocking pass: at least 1."""
     if t_steps < 1:
