@@ -12,14 +12,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
 3. every kernel against its plain PyTorch version on the card, required
    bitwise equal (``torch.equal``):
    - stencils, the stream and the block kernels of the star (1D, 2D, 3D)
-     and of the box stencils (2D 9-point, 3D 27-point), the grid and wave
-     kernels of the 1D and 2D star and the 1D stream kernel's carry form
-     (stream2): kernel x {float32, bfloat16, float16} x {dirichlet,
-     periodic} (wave: dirichlet, and its refusal of periodic asserted),
-     20 steps at full size, plus ragged shapes and (every chunked arm) a
-     non-default chunk;
+     and of the box stencils (2D 9-point, 3D 27-point), the grid kernels
+     of the 1D and 2D star, the wave kernels of the 1D and 2D star and of
+     both boxes, and the 1D stream kernel's carry form (stream2): kernel
+     x {float32, bfloat16, float16} x {dirichlet, periodic} (wave:
+     dirichlet, and its refusal of periodic asserted), 20 steps at full
+     size, plus ragged shapes and (every chunked arm) a non-default chunk;
    - temporal blocking, the multi kernels of the 1D and 2D star and the
-     9-point box: every dtype x bc at full size over 3 passes of t = 8,
+     9-point box and the 3D wavefront (dirichlet only, t = 4 a pass):
+     every dtype x bc at full size over 3 passes of t = 8,
      t = 1 (in float32 also equal to one step of the block kernel), a t
      above the kernel's most steps a launch (chained sub-passes), ragged
      shapes and non-default tiles;
@@ -34,9 +35,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    kernel's launch count set to 0 just before and read just after:
    ``stencil --impl auto --verify`` for dims 1, 2 and 3 at full size, the
    box stencils ``stencil --points 9 --dim 2`` and ``--points 27 --dim 3``
-   with ``--impl auto`` and ``--impl block``, ``--impl grid``, ``wave``
-   and ``torch`` in 1D and 2D and ``--impl stream2`` in 1D (a ``torch``
-   run launches no kernel), ``membw --op OP --impl
+   with ``--impl auto``, ``--impl block`` and ``--impl wave``, ``--impl
+   grid``, ``wave`` and ``torch`` in 1D and 2D and ``--impl stream2`` in
+   1D (a ``torch`` run launches no kernel), ``membw --op OP --impl
    ARM`` for every (op, arm) pair the JAX CLI accepts, and the mesh runs
    ``stencil --mesh 1[,1[,1]]`` (world size 1, the NCCL group created; a
    periodic axis exchanges with its own rank through NCCL) for the block
@@ -47,9 +48,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    each dirichlet and periodic, plus one star and one ``--points 9``
    ``--tol`` run whose residual goes through ``all_reduce``; temporal
    blocking: ``stencil --impl multi --t-steps 8 --iters 96`` for the 1D
-   and 2D star and ``--points 9`` at full size (its kernel launched once
-   a pass, and no other), and on a mesh of one ``--impl multi --t-steps
-   4`` (the width-4 chained exchange, no kernel) for the star in 1D, 2D,
+   and 2D star and ``--points 9`` and ``--t-steps 4`` (dirichlet) for the
+   3D star at full size (its kernel launched once a pass, and no other),
+   and on a mesh of one ``--impl multi --t-steps 4`` (the width-4 chained
+   exchange, no kernel) for the star in 1D, 2D,
    3D and both boxes, each bc; each row must say ``platform: cuda`` and
    ``verified: true``, the run's kernels must have launched and no
    other;
@@ -61,13 +63,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (exchange, kernel, face recompute, freeze) beside its kernel alone and
    its exchange alone; for the multi kernels the time per pass of t = 8,
    its bound, and a circular convolution with the t-fold stencil as the
-   library call; for the mesh ``multi`` arm one pass divided by t beside
-   the block arm's step;
+   library call (t = 4 for the 3D wavefront, also timed at t = 1, 2,
+   8); for the mesh ``multi`` arm one pass divided by t beside the block
+   arm's step;
 6. the script's time, the ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, ...}`` line.
 
 Phase 5 also times the grid, wave and stream2 kernels like the other
-single-device stencils (``measure_times``).
+single-device stencils (``measure_times``), each grid and wave kernel
+also at other chunks (ring blocks, or the 27-point wave's tile rows).
 
 Full sizes: stencils 1D 2^26 points, 2D 8192^2, 3D 512^3 (the box
 stencils too); membw 2^26 elements. In float32 that is 256/256/512 MiB
@@ -123,6 +127,8 @@ KERNELS = {
     "wave": {
         1: ("jacobi1d_wave", "tpu_comm/kernels/jacobi1d.py:558"),
         2: ("jacobi2d_wave", "tpu_comm/kernels/jacobi2d.py:517"),
+        9: ("stencil9_wave", "tpu_comm/kernels/stencil9.py:272"),
+        27: ("stencil27_wave", "tpu_comm/kernels/stencil27.py:246"),
     },
     "stream2": {
         1: ("jacobi1d_stream2", "tpu_comm/kernels/jacobi1d.py:318"),
@@ -137,15 +143,15 @@ SOURCES = {"stream": "tpu_comm_torch/csrc/jacobi_stream.cu",
 ARM_BCS = {"wave": ("dirichlet",)}
 #: the chunks phase 5 also times the grid and wave kernels at (float32,
 #: dirichlet), beside their defaults: rows of 128 cells (1D), tile rows
-#: or ring-block rows (2D)
+#: or ring-block rows (2D, 9-point), tile rows (27-point)
 CHUNK_SWEEP = {"grid": {1: (16, 32, 128), 2: (16, 64)},
-               "wave": {1: (8, 32), 2: (4, 16)}}
+               "wave": {1: (8, 32), 2: (4, 16), 9: (4, 16), 27: (4, 16)}}
 BOX_SOURCE = "tpu_comm_torch/csrc/box.cu"
 #: the single-device runs of phase 4: (key, --impl)
 MAIN_RUNS = [(1, "auto"), (2, "auto"), (3, "auto"), (9, "auto"),
              (9, "block"), (27, "auto"), (27, "block"), (1, "grid"),
-             (2, "grid"), (1, "wave"), (2, "wave"), (1, "stream2"),
-             (1, "torch"), (2, "torch")]
+             (2, "grid"), (1, "wave"), (2, "wave"), (9, "wave"),
+             (27, "wave"), (1, "stream2"), (1, "torch"), (2, "torch")]
 PACK_KERNEL = ("pack_faces", "tpu_comm/kernels/pack.py:48")
 PACK_SOURCE = "tpu_comm_torch/csrc/pack.cu"
 PACK_RAGGED = [(1, 1, 1), (3, 5, 7), (19, 23, 45), (130, 9, 33)]
@@ -173,7 +179,7 @@ RAGGED = {
 }
 #: the least depth of the 3D kernels that take 2 planes (the 7-point
 #: stream needs 3)
-LEAST_DEPTH = {"block": (3, 27), "stream": (27,)}
+LEAST_DEPTH = {"block": (3, 27), "stream": (27,), "wave": (27,)}
 #: a non-default chunk per dim (rows / rows / planes), results must not move
 ODD_CHUNK = {1: 1, 2: 5, 3: 3}
 #: temporal blocking: the family keys with a multi kernel, the kernel and
@@ -182,22 +188,33 @@ MULTI_KERNELS = {
     1: ("jacobi1d_multi", "tpu_comm/kernels/jacobi1d.py:426"),
     2: ("jacobi2d_multi", "tpu_comm/kernels/jacobi2d.py:387"),
     9: ("stencil9_multi", "tpu_comm/kernels/stencil9.py:378"),
+    3: ("jacobi3d_multi", "tpu_comm/kernels/jacobi3d.py:240"),
 }
 MULTI_SOURCE = "tpu_comm_torch/csrc/multi.cu"
 #: steps a pass of the checks, the single-device runs and the times
 MULTI_T = 8
+#: the 3D wavefront's instead: JAX's default, and the most JAX fuses at
+#: 512^2 planes
+MULTI_T_OF = {3: 4}
+#: the bcs of each multi family (the 3D wavefront: dirichlet only, as
+#: JAX's)
+MULTI_BCS = {3: ("dirichlet",)}
 #: passes of the full-size check
 MULTI_PASSES = 3
 #: a non-default tile per field dim (1D: rows of 128; 2D: rows, columns)
 MULTI_ODD_TILES = {1: [{"rows_per_chunk": 5}],
                    2: [{"rows_per_chunk": 40, "cols_per_chunk": 72},
-                       {"rows_per_chunk": 7, "cols_per_chunk": 300}]}
+                       {"rows_per_chunk": 7, "cols_per_chunk": 300}],
+                   3: [{"rows_per_chunk": 8, "cols_per_chunk": 24},
+                       {"rows_per_chunk": 5, "cols_per_chunk": 19}]}
 #: the t and the tiles phase 5 also times a pass at (float32, dirichlet)
-MULTI_T_SWEEP = (1, 2, 4, 16)
+MULTI_T_SWEEP = {1: (1, 2, 4, 16), 2: (1, 2, 4, 16), 3: (1, 2, 8)}
 MULTI_TILE_SWEEP = {
     1: [{"rows_per_chunk": r} for r in (8, 16, 64)],
     2: [{"rows_per_chunk": r, "cols_per_chunk": c}
         for r, c in ((48, 48), (32, 96), (96, 96), (48, 112))],
+    3: [{"rows_per_chunk": r, "cols_per_chunk": c}
+        for r, c in ((24, 24), (24, 56), (24, 120))],
 }
 #: loop length of the single-device multi runs (a multiple of MULTI_T)
 MULTI_ITERS = 96
@@ -316,8 +333,9 @@ def check_kernels(torch, mods, arm: str) -> dict:
                              f"kernel != plain (max abs err {err})")
                     if (arm != "block" and shape == cases[0]
                             and bc == bcs[-1]):
-                        knob = "planes_per_chunk" if dim == 3 else \
-                            "rows_per_chunk"
+                        knob = ("planes_per_chunk"
+                                if dim == 3 and arm != "wave"
+                                else "rows_per_chunk")
                         odd = mod.run(u, 2, bc=bc, impl=arm,
                                       **{knob: ODD_CHUNK[dim]})
                         if not torch.equal(odd, mod.run(u, 2, bc=bc,
@@ -717,6 +735,7 @@ def check_multi(torch, mods) -> dict:
     for key, (name, _) in MULTI_KERNELS.items():
         mod, dim = mods[key], DIM[key]
         full = (SIZES[dim],) * dim
+        t_pass = MULTI_T_OF.get(key, MULTI_T)
         t_over = 2 * MULTI_T_MAX[dim] + 3
         worst = 0.0
         cases = 0
@@ -731,14 +750,14 @@ def check_multi(torch, mods) -> dict:
                 fail(f"{name} {what}: kernel != plain (max abs err {err})")
 
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            for bc in ("dirichlet", "periodic"):
+            for bc in MULTI_BCS.get(key, ("dirichlet", "periodic")):
                 u = random_field(torch, full, dtype, seed=50 + dim)
-                hold(mod.run_multi(u, MULTI_PASSES * MULTI_T, bc,
-                                   t_steps=MULTI_T),
+                hold(mod.run_multi(u, MULTI_PASSES * t_pass, bc,
+                                   t_steps=t_pass),
                      run_steps(mod.step_multi_plain, u, MULTI_PASSES, bc,
-                               t_steps=MULTI_T),
+                               t_steps=t_pass),
                      f"{full} {dtype} {bc} {MULTI_PASSES} passes of "
-                     f"t={MULTI_T}")
+                     f"t={t_pass}")
                 one = mod.step_multi(u, bc, 1)
                 hold(one, mod.step_multi_plain(u, bc, 1),
                      f"{full} {dtype} {bc} t=1")
@@ -752,13 +771,14 @@ def check_multi(torch, mods) -> dict:
                 hold(got, mod.step_multi_plain(u, bc, t_over),
                      f"{full} {dtype} {bc} t={t_over} (chained)")
                 if dtype == torch.float32:
-                    ref = mod.step_multi(u, bc, MULTI_T)
+                    ref = mod.step_multi(u, bc, t_pass)
                     for tile in MULTI_ODD_TILES[dim]:
-                        hold(mod.step_multi(u, bc, MULTI_T, **tile), ref,
+                        hold(mod.step_multi(u, bc, t_pass, **tile), ref,
                              f"{full} {bc} tile {tile}")
                     del ref
                 del u, one, got
-                for shape in RAGGED[dim]:
+                for shape in RAGGED[dim] + ([(2, 3, 3)] if dim == 3
+                                            else []):
                     u = random_field(torch, shape, dtype, seed=60 + dim)
                     for t in (3, MULTI_T):
                         hold(mod.step_multi(u, bc, t),
@@ -768,7 +788,9 @@ def check_multi(torch, mods) -> dict:
         errs[key] = worst
         emit({"check": {"kernel": name, "cases": cases,
                         "shapes": [list(full)] + RAGGED[dim],
-                        "t_steps": [1, 3, MULTI_T, t_over],
+                        "bcs": list(MULTI_BCS.get(key, ("dirichlet",
+                                                        "periodic"))),
+                        "t_steps": sorted({1, 3, t_pass, MULTI_T, t_over}),
                         "max_abs_err": worst,
                         "tolerance": "bitwise (torch.equal)",
                         "elapsed_s": time.perf_counter() - T0}})
@@ -785,13 +807,14 @@ def drive_multi(torch, counters) -> dict:
     warmup, reps = 3, 10
     with tempfile.TemporaryDirectory() as tmp:
         for key, (name, _) in MULTI_KERNELS.items():
-            for bc in ("dirichlet", "periodic"):
+            t = MULTI_T_OF.get(key, MULTI_T)
+            for bc in MULTI_BCS.get(key, ("dirichlet", "periodic")):
                 path = Path(tmp) / f"multi{key}-{bc}.jsonl"
                 for w in counters.values():
                     w.launches = 0
                 argv = ["stencil", *_stencil_argv(key), "--size",
                         str(SIZES[DIM[key]]), "--impl", "multi",
-                        "--t-steps", str(MULTI_T), "--iters",
+                        "--t-steps", str(t), "--iters",
                         str(MULTI_ITERS), "--bc", bc, "--verify",
                         "--verify-iters", str(VERIFY_ITERS), "--warmup",
                         str(warmup), "--reps", str(reps), "--jsonl",
@@ -803,15 +826,15 @@ def drive_multi(torch, counters) -> dict:
                     fail(f"{what} exited {rc}")
                 row = json.loads(path.read_text().splitlines()[-1])
                 want = {"platform": "cuda", "verified": True,
-                        "impl": "multi", "t_steps": MULTI_T,
+                        "impl": "multi", "t_steps": t,
                         "workload": _workload(key)}
                 got = {k: row.get(k) for k in want}
                 if got != want:
                     fail(f"{what}: row says {got}, expected {want}")
                 # the verify run's passes (its iterations rounded up to
                 # t), then iters/t and 3*iters/t a timed loop
-                passes = -(-VERIFY_ITERS // MULTI_T) + (
-                    (warmup + reps) * 4 * MULTI_ITERS // MULTI_T)
+                passes = -(-VERIFY_ITERS // t) + (
+                    (warmup + reps) * 4 * MULTI_ITERS // t)
                 if counts[name] != passes:
                     fail(f"{what}: {name} launched {counts[name]} times, "
                          f"expected {passes} (one a pass)")
@@ -820,7 +843,7 @@ def drive_multi(torch, counters) -> dict:
                 launches[name] += counts[name]
                 emit({"main_path": {
                     "stencil": _workload(key), "impl": "multi", "bc": bc,
-                    "t_steps": MULTI_T, "launches": counts[name],
+                    "t_steps": t, "launches": counts[name],
                     "gbps_eff": row["gbps_eff"],
                     "secs_per_iter": row["secs_per_iter"],
                     "elapsed_s": time.perf_counter() - T0}})
@@ -843,7 +866,7 @@ def composed_weights(torch, key: int, t: int):
                 idx = [0, 0] + [1] * dim
                 idx[2 + axis] = side
                 w[tuple(idx)] = 1.0 / (2 * dim)
-    conv = {1: F.conv1d, 2: F.conv2d}[dim]
+    conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[dim]
     k = w
     for _ in range(t - 1):  # the weights are symmetric: no flip needed
         k = conv(F.pad(k, (2,) * (2 * dim)), w)
@@ -860,17 +883,19 @@ def measure_multi(torch, mods) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    t = MULTI_T
     for key, (name, _) in MULTI_KERNELS.items():
         mod, dim = mods[key], DIM[key]
+        t = MULTI_T_OF.get(key, MULTI_T)
         shape = (SIZES[dim],) * dim
         u = random_field(torch, shape, torch.float32, seed=70 + key)
         dst = torch.empty_like(u)
         n = u.numel()
         kernel_ms = time_ms(
             torch, lambda: mod.step_multi(u, "dirichlet", t, out=dst), 30)
-        periodic_ms = time_ms(
-            torch, lambda: mod.step_multi(u, "periodic", t, out=dst), 30)
+        periodic_ms = None
+        if "periodic" in MULTI_BCS.get(key, ("periodic",)):
+            periodic_ms = time_ms(
+                torch, lambda: mod.step_multi(u, "periodic", t, out=dst), 30)
         plain_ms = time_ms(
             torch, lambda: mod.step_multi_plain(u, "dirichlet", t, out=dst),
             3)
@@ -879,13 +904,15 @@ def measure_multi(torch, mods) -> dict:
         chunked_copy_ms = time_ms(
             torch, lambda: membw.step_chunked(flat_u, None, 1.0, "copy",
                                               out=flat_dst), 50)
-        conv = {1: torch.nn.Conv1d, 2: torch.nn.Conv2d}[dim](
+        conv = {1: torch.nn.Conv1d, 2: torch.nn.Conv2d,
+                3: torch.nn.Conv3d}[dim](
             1, 1, 2 * t + 1, padding=t, padding_mode="circular",
             bias=False).cuda()
         x = u.reshape((1, 1) + shape)
         with torch.no_grad():
             conv.weight.copy_(composed_weights(torch, key, t))
-            library_ms = time_ms(torch, lambda: conv(x), 5)
+            library_ms = time_ms(torch, lambda: conv(x), 3 if dim == 3
+                                 else 5)
             lib_err = float(
                 (conv(x).reshape(shape)
                  - mod.step_multi_plain(u, "periodic", t)).abs().max())
@@ -894,7 +921,7 @@ def measure_multi(torch, mods) -> dict:
         t_sweep_ms = {
             str(k): time_ms(torch, lambda: mod.step_multi(
                 u, "dirichlet", k, out=dst), 10)
-            for k in MULTI_T_SWEEP}
+            for k in MULTI_T_SWEEP[dim]}
         tile_sweep_ms = {
             json.dumps(tile): time_ms(torch, lambda: mod.step_multi(
                 u, "dirichlet", t, out=dst, **tile), 10)
@@ -1190,7 +1217,8 @@ def main() -> int:
             t = times[arm][key]
             stencil_rows.append({
                 "name": name, "route": "cuda",
-                "source": BOX_SOURCE if key in BOX else SOURCES[arm],
+                "source": (BOX_SOURCE if key in BOX and arm != "wave"
+                           else SOURCES[arm]),
                 "replaces": replaces,
                 # the single-device runs plus the mesh runs that use it
                 "launches": mesh_launches[name] + launches[name],

@@ -378,11 +378,10 @@ def test_torch_arm_runs_the_tol_mode(tmp_path):
      "--impl grid not available for dim=3"),
     (["--dim", "2", "--impl", "stream2"],
      "--impl stream2 not available for dim=2"),
-    (["--points", "9", "--dim", "2", "--impl", "wave"],
-     "--impl wave for --points 9 (JAX's pallas-wave, the box in "
-     "ring-buffer form) is not yet ported"),
-    (["--points", "27", "--dim", "3", "--impl", "wave"],
-     "--impl wave for --points 27"),
+    (["--points", "9", "--dim", "2", "--impl", "wave", "--bc", "periodic"],
+     "wave supports bc='dirichlet' only, as JAX's pallas-wave"),
+    (["--points", "27", "--dim", "3", "--impl", "wave", "--bc",
+      "periodic"], "wave supports bc='dirichlet' only"),
     (["--points", "9", "--dim", "2", "--impl", "grid"],
      "--impl grid not available for --points 9"),
     (["--dim", "2", "--mesh", "2,2", "--impl", "wave"],

@@ -279,9 +279,9 @@ def test_sub_fp32_driver_verifies_against_golden(points, dtype):
      "--points 9 (the 2D box stencil) needs --dim 2"),
     (["--points", "27", "--dim", "2"],
      "--points 27 (the 3D box stencil) needs --dim 3"),
-    (["--points", "9", "--dim", "2", "--impl", "wave"],
-     "--impl wave for --points 9 (JAX's pallas-wave, the box in "
-     "ring-buffer form) is not yet ported"),
+    (["--points", "9", "--dim", "2", "--impl", "wave", "--bc", "periodic"],
+     "wave supports bc='dirichlet' only, as JAX's pallas-wave (its "
+     "frozen edges are the TPU pipeline's junk barrier)"),
     (["--points", "27", "--dim", "3", "--impl", "overlap"],
      "--impl overlap is an arm of a mesh run: pass --mesh"),
     (["--points", "27", "--dim", "3", "--impl", "pallas"],

@@ -531,3 +531,128 @@ def test_torch_arm_on_the_card_launches_no_kernel(card, dim, points, bc,
     want = mod.run(u.cpu(), 3, bc=bc, impl="torch")
     assert torch.equal(got.cpu(), want)
     assert [w.launches for w in (mod.step_stream, mod.step_block)] == counts
+
+
+#: the Trap-1 family of slice 7: the two box waves and the 3D wavefront
+BOX_WAVE_SHAPES = {
+    9: [(3, 3), (37, 301), (1001, 37), (300, 1030), (1024, 1024)],
+    27: [(3, 3, 3), (2, 5, 7), (19, 23, 45), (130, 9, 33), (64, 64, 64)],
+}
+MULTI3D_SHAPES = [(3, 3, 3), (2, 5, 7), (19, 23, 45), (130, 9, 33),
+                  (64, 64, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("points", [9, 27])
+def test_box_wave_kernels_bitwise_equal_plain_version(card, points, dtype):
+    mod = _box(points)
+    for shape in BOX_WAVE_SHAPES[points]:
+        u = _field(shape, dtype, seed=len(shape))
+        got = mod.run(u, 5, bc="dirichlet", impl="wave")
+        want = run_steps(mod.step_plain, u, 5, "dirichlet")
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want), shape
+
+
+@pytest.mark.parametrize("points", [9, 27])
+def test_box_wave_chunk_sets_the_grid_not_the_result(card, points):
+    mod = _box(points)
+    u = _field(BOX_WAVE_SHAPES[points][-2], torch.float32)
+    ref = mod.step_wave(u)
+    for chunk in (1, 2, 3, 7, 9, 16):
+        assert torch.equal(mod.step_wave(u, rows_per_chunk=chunk), ref), chunk
+
+
+@pytest.mark.parametrize("points", [9, 27])
+def test_box_wave_takes_views_off_the_16_byte_grid(card, points):
+    base = _field((1 << 16) + 8, torch.float32)
+    shape = (200, 300) if points == 9 else (6, 40, 250)
+    n = 1
+    for s in shape:
+        n *= s
+    u = base[3:3 + n].view(shape)
+    mod = _box(points)
+    assert torch.equal(mod.step_wave(u), mod.step_plain(u))
+
+
+@pytest.mark.parametrize("points", [9, 27])
+def test_box_wave_wrappers_count_launches_and_check_arguments(card, points):
+    mod = _box(points)
+    u = _field(BOX_WAVE_SHAPES[points][2], torch.float32)
+    before = mod.step_wave.launches
+    out = torch.empty_like(u)
+    assert mod.step_wave(u, out=out) is out
+    assert mod.step_wave.launches == before + 1
+    with pytest.raises(ValueError, match="alias"):
+        mod.step_wave(u, out=u)
+    with pytest.raises(ValueError, match="takes"):
+        mod.step_wave(u.double())
+    with pytest.raises(ValueError, match="bc='dirichlet' only"):
+        mod.step_wave(u, "periodic")
+    with pytest.raises(ValueError, match="shared memory"):
+        mod.step_wave(u, rows_per_chunk=1 << 12)
+    if points == 27:
+        with pytest.raises(ValueError, match="at most 16 rows"):
+            mod.step_wave(u, rows_per_chunk=17)
+    assert mod.step_wave.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_multi3d_kernel_bitwise_equals_plain_version(card, dtype):
+    """t = 1, 2, the most a launch takes, and one more than twice that
+    (three chained launches through the f32 scratch field): one narrowing
+    in every case."""
+    from tpu_comm_torch.kernels.tiling import MULTI_T_MAX
+
+    t_max = MULTI_T_MAX[3]
+    for shape in MULTI3D_SHAPES:
+        u = _field(shape, dtype, seed=len(shape) + shape[0])
+        for t in (1, 2, t_max, 2 * t_max + 1):
+            got = jacobi3d.step_multi(u, "dirichlet", t)
+            want = jacobi3d.step_multi_plain(u, "dirichlet", t)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.equal(got, want), (shape, t)
+        if dtype == torch.float32:
+            assert torch.equal(jacobi3d.step_multi(u, "dirichlet", 1),
+                               jacobi3d.step_block(u, "dirichlet")), shape
+
+
+def test_multi3d_tile_sets_the_grid_not_the_result(card):
+    u = _field(MULTI3D_SHAPES[2], torch.float32)
+    ref = jacobi3d.step_multi(u, "dirichlet", 4)
+    for rows, cols in ((1, 1), (3, 5), (8, 24), (24, 8), (5, 19)):
+        got = jacobi3d.step_multi(u, "dirichlet", 4, rows_per_chunk=rows,
+                                  cols_per_chunk=cols)
+        assert torch.equal(got, ref), (rows, cols)
+
+
+def test_multi3d_takes_views_off_the_16_byte_grid(card):
+    base = _field((1 << 16) + 8, torch.float32)
+    u = base[3:3 + 6 * 40 * 250].view(6, 40, 250)
+    assert torch.equal(jacobi3d.step_multi(u, "dirichlet", 3),
+                       jacobi3d.step_multi_plain(u, "dirichlet", 3))
+
+
+def test_multi3d_wrapper_counts_launches_and_checks_its_arguments(card):
+    from tpu_comm_torch.kernels.tiling import MULTI_T_MAX
+
+    u = _field(MULTI3D_SHAPES[2], torch.float32)
+    before = jacobi3d.step_multi.launches
+    out = torch.empty_like(u)
+    assert jacobi3d.step_multi(u, t_steps=4, out=out) is out
+    assert jacobi3d.step_multi.launches == before + 1
+    jacobi3d.step_multi(u, t_steps=2 * MULTI_T_MAX[3] + 1)
+    assert jacobi3d.step_multi.launches == before + 4  # three chained
+    with pytest.raises(ValueError, match="alias"):
+        jacobi3d.step_multi(u, out=u)
+    with pytest.raises(ValueError, match="takes"):
+        jacobi3d.step_multi(u.double())
+    with pytest.raises(ValueError, match="bc='dirichlet' only"):
+        jacobi3d.step_multi(u, "periodic")
+    with pytest.raises(ValueError, match="t_steps must be >= 1"):
+        jacobi3d.step_multi(u, t_steps=0)
+    with pytest.raises(ValueError, match="threads"):
+        jacobi3d.step_multi(u, rows_per_chunk=1000)
+    assert jacobi3d.step_multi.launches == before + 4

@@ -184,9 +184,9 @@ def test_library_refuses_what_jax_refuses():
     with pytest.raises(ValueError, match="t_steps must be >= 1"):
         run_steps_multi(p1.step_multi, torch.from_numpy(u1), 8, "periodic",
                         0)
-    # no temporal blocking for the 3D star (the wavefront, not yet
-    # ported) nor for the 27-point box (none in JAX either)
-    assert not hasattr(kernels_for(3), "run_multi")
+    # temporal blocking for the 3D star (the wavefront), none for the
+    # 27-point box (none in JAX either)
+    assert hasattr(kernels_for(3), "run_multi")
     assert not hasattr(kernels_for(3, 27), "run_multi")
 
 
@@ -274,9 +274,9 @@ def test_cli_t_steps_defaults_to_jax_value():
      "--iters (12) must be a multiple of --t-steps (8)"),
     (["--dim", "2", "--iters", "16", "--tol", "0.1"],
      "--tol convergence mode and --impl multi are exclusive"),
-    (["--dim", "3", "--iters", "16"],
-     "--impl multi in 3D (the wavefront temporal blocking) is not yet "
-     "ported"),
+    (["--dim", "3", "--iters", "16", "--bc", "periodic"],
+     "--impl multi in 3D (wavefront temporal blocking) supports --bc "
+     "dirichlet only"),
     (["--points", "27", "--dim", "3", "--iters", "16"],
      "not available for --points 27"),
     (["--dim", "2", "--iters", "16", "--t-steps", "0"],

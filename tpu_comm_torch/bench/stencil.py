@@ -60,6 +60,9 @@ DEFAULT_SIZES = {1: 1 << 20, 2: 4096, 3: 256}
 DIST_IMPLS = ("torch", "overlap", "block", "stream", "multi")
 #: the JAX driver's other arm, refused until a later slice ports it
 UNPORTED_IMPLS = ("partitioned",)
+#: the 3D arms that take no ``--chunk`` (the JAX driver's reason: they
+#: stream one plane a step); their rows carry no chunk, as JAX's
+UNCHUNKED_3D = ("wave", "multi")
 #: the arms that take ``--chunk``, each with its family module's default
 CHUNK_DEFAULTS = {
     "stream": "default_chunk",
@@ -169,11 +172,6 @@ def resolve_impl(impl: str, distributed: bool = False, dim: int = 1,
     if impl in impls or impl == "multi":
         return impl
     family = f"--points {points}" if points else f"dim={dim}"
-    if impl == "wave" and points:
-        raise ValueError(
-            f"--impl wave for {family} (JAX's pallas-wave, the box in "
-            f"ring-buffer form) is not yet ported; see ROADMAP.md"
-        )
     if impl in CHUNK_DEFAULTS:
         raise ValueError(
             f"--impl {impl} not available for {family} (choices: "
@@ -265,6 +263,11 @@ def _validate(cfg: StencilConfig) -> StencilConfig:
     cfg = dataclasses.replace(cfg, impl=resolve_impl(
         cfg.impl, cfg.mesh is not None, cfg.dim, cfg.points))
     if cfg.impl == "multi":
+        if cfg.mesh is None and cfg.dim == 3 and cfg.bc != "dirichlet":
+            raise ValueError(
+                "--impl multi in 3D (wavefront temporal blocking) supports "
+                "--bc dirichlet only; use stream for periodic"
+            )
         if cfg.iters % cfg.t_steps != 0:
             raise ValueError(
                 f"--iters ({cfg.iters}) must be a multiple of --t-steps "
@@ -278,14 +281,9 @@ def _validate(cfg: StencilConfig) -> StencilConfig:
     if cfg.mesh is None:
         kernels = kernels_for(cfg.dim, cfg.points)
         if cfg.impl == "multi" and not hasattr(kernels, "run_multi"):
-            if cfg.points:
-                raise ValueError(
-                    f"--impl multi is not available for --points "
-                    f"{cfg.points} (choices: {single_device_impls(kernels)})"
-                )
             raise ValueError(
-                f"--impl multi in {cfg.dim}D (the wavefront temporal "
-                f"blocking) is not yet ported; see ROADMAP.md"
+                f"--impl multi is not available for --points {cfg.points} "
+                f"(choices: {single_device_impls(kernels)})"
             )
         if cfg.pack != "fused":
             raise ValueError("--pack applies to a 3D mesh run: pass --mesh")
@@ -295,6 +293,13 @@ def _validate(cfg: StencilConfig) -> StencilConfig:
             raise ValueError(
                 f"--chunk applies to --impl {'|'.join(CHUNK_DEFAULTS)}; "
                 f"--impl {cfg.impl} chooses its own launch grid"
+            )
+        if (cfg.dim == 3 and cfg.impl in UNCHUNKED_3D
+                and cfg.chunk is not None):
+            raise ValueError(
+                f"--chunk does not apply to 3D {cfg.impl}: the "
+                "wavefront/wave kernels stream one plane per grid step (no "
+                "chunk length; multi's window is set by t_steps)"
             )
     return cfg
 
@@ -383,7 +388,8 @@ def run_single_device(cfg: StencilConfig) -> dict:
     u0 = to_numpy_field(u_dev)
     multi = cfg.impl == "multi"
     key = "planes_per_chunk" if cfg.dim == 3 else "rows_per_chunk"
-    if cfg.impl in CHUNK_DEFAULTS:
+    if cfg.impl in CHUNK_DEFAULTS and not (
+            cfg.dim == 3 and cfg.impl in UNCHUNKED_3D):
         if cfg.chunk is None:
             default = getattr(kernels, CHUNK_DEFAULTS[cfg.impl])
             chunk, chunk_source = default(cfg.global_shape), "auto"
@@ -392,8 +398,8 @@ def run_single_device(cfg: StencilConfig) -> dict:
         kwargs = {key: chunk}
         chunk_fields = {"chunk": chunk, "chunk_source": chunk_source}
     else:
-        # the block kernels and the torch arm take no chunk, and their
-        # rows carry none
+        # the block kernels, the torch arm and the 3D wave and multi take
+        # no chunk, and their rows carry none
         kwargs, chunk_fields = {}, {}
     traffic = stencil_bytes_per_iter(cfg.global_shape, u_dev.element_size())
     base = {

@@ -208,8 +208,9 @@ def build_parser() -> argparse.ArgumentParser:
         "rows of the stream kernel's 32-column strip, of the grid "
         "kernel's 256-column tile, of a wave ring block of a 256-column "
         "strip, or of the 64-column multi tile) or z-planes per block "
-        "(3D); default: the kernel's own. Sets the launch grid, never the "
-        "result",
+        "(3D stream); not taken by the 3D wave and multi arms (they "
+        "stream one plane a step); default: the kernel's own. Sets the "
+        "launch grid, never the result",
     )
     p_st.add_argument(
         "--t-steps", type=int, default=8,
@@ -229,9 +230,9 @@ def build_parser() -> argparse.ArgumentParser:
         "9 = the 2D box stencil (--dim 2; reads corner neighbors), "
         "27 = the 3D box stencil (--dim 3; reads edge AND corner "
         "neighbors). On a mesh, the workloads that consume the transitive "
-        "corner ghosts. Arms: 'stream', 'block' and 'torch' on one "
-        "device, and 'multi' for --points 9; 'torch', 'overlap', 'block', "
-        "'stream' and 'multi' on a mesh",
+        "corner ghosts. Arms: 'stream', 'block', 'wave' and 'torch' on "
+        "one device, and 'multi' for --points 9; 'torch', 'overlap', "
+        "'block', 'stream' and 'multi' on a mesh",
     )
     p_st.add_argument(
         "--impl", default="auto",
@@ -240,10 +241,12 @@ def build_parser() -> argparse.ArgumentParser:
         "whole-field CUDA kernel; JAX 'pallas'), 'torch' (plain PyTorch in "
         "the field's dtype, no kernel; JAX 'lax'), 'grid' (a window a CUDA "
         "block, 1D and 2D; JAX 'pallas-grid'), 'wave' (ring-buffered block "
-        "streams, 1D and 2D, dirichlet only; JAX 'pallas-wave'), "
+        "streams, 1D, 2D and --points 9|27, dirichlet only; JAX "
+        "'pallas-wave'), "
         "'stream2' (the stream kernel's column-strip carry form, 1D; JAX "
         "'pallas-stream2') or 'multi' (--t-steps steps a pass by temporal "
-        "blocking, 1D, 2D and --points 9; JAX 'pallas-multi'). With --mesh "
+        "blocking, 1D, 2D, --points 9 and 3D, the 3D wavefront dirichlet "
+        "only; JAX 'pallas-multi'). With --mesh "
         "'block', 'stream', 'torch' (plain PyTorch on the ghost-padded "
         "block), 'overlap' (interior/boundary split in plain PyTorch; what "
         "'auto' picks there) and 'multi' (one width-t ghost exchange, then "

@@ -4,6 +4,8 @@
 //   tpu_comm/kernels/jacobi1d.py _jacobi1d_multi_kernel (step_pallas_multi)
 //   tpu_comm/kernels/jacobi2d.py _jacobi2d_multi_kernel (step_pallas_multi)
 //   tpu_comm/kernels/stencil9.py _stencil9_multi_kernel (step_pallas_multi)
+//   tpu_comm/kernels/jacobi3d.py _jacobi3d_wave_kernel (step_pallas_multi,
+//     the 3.5D wavefront; dirichlet only, as the TPU arm)
 // and of the edge fixes those wrappers run outside their kernels
 // (_edge_cone_fix_multi, _edge_band_fix_multi_2d, _box_edge_band_fix_multi):
 // here every cell, the global edges included, is computed in the kernel.
@@ -15,13 +17,14 @@
 // pointers and the current CUDA stream, and raise on a non-zero return.
 //
 // Numerical contract (shared with step_multi_plain in kernels/jacobi1d.py,
-// kernels/jacobi2d.py and kernels/stencil9.py): the input is widened to f32
-// once, t steps run in f32 in the golden's association, each step exactly
-// the single-step kernels' arithmetic:
+// kernels/jacobi2d.py, kernels/stencil9.py and kernels/jacobi3d.py): the
+// input is widened to f32 once, t steps run in f32 in the golden's
+// association, each step exactly the single-step kernels' arithmetic:
 //   1D        (left + right) * 0.5f
 //   2D star   ((up + down) + (left + right)) * 0.25f
 //   9-point   (((up + down) + (left + right)) + ((ul + dr) + (ur + dl)))
 //             * 0.125f
+//   3D star   (((zm + zp) + (ym + yp)) + (xm + xp)) * (float)(1.0 / 6.0)
 // and the result is narrowed once, round-to-nearest-even (the TPU kernel's
 // f32_compute / one narrow store per pass). The explicit __fadd_rn and
 // __fmul_rn are never contracted into an FMA, and -fmad=false guards the
@@ -31,7 +34,8 @@
 // information barrier: the junk a tile's window holds beyond the field's
 // edge never crosses it.
 //
-// Design: overlapped (trapezoid) tiling. Each block owns one output tile,
+// Design (1D, 2D; the 3D wavefront's is set out at its kernel):
+// overlapped (trapezoid) tiling. Each block owns one output tile,
 // loads the tile plus a t-cell halo on every side (wrapped modulo the
 // extents) into shared memory as f32, and runs the t steps ping-pong
 // between two shared buffers, the valid region shrinking by one cell a
@@ -51,9 +55,10 @@
 // global dirichlet ring skips the ring test (kFreeze), and a full work
 // item runs without bound tests (kFull).
 //
-// Steps beyond kTMax1 / kTMax2 are chained by the wrapper into sub-passes
-// through an f32 scratch field: a launch can read and write either the
-// field's dtype or f32 (Tin, Tout), so the chain narrows only once.
+// Steps beyond kTMax1 / kTMax2 / kTMax3 are chained by the wrapper into
+// sub-passes through an f32 scratch field: a launch can read and write
+// either the field's dtype or f32 (Tin, Tout), so the chain narrows only
+// once.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -414,6 +419,172 @@ __global__ void __launch_bounds__(kThreads2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// 3D 7-point: the 3.5D wavefront, replaces tpu_comm/kernels/jacobi3d.py
+// _jacobi3d_wave_kernel (step_pallas_multi).
+//
+// The TPU kernel runs its grid over z in order and keeps, for each of its
+// t levels, a two-plane f32 ring of whole planes in VMEM that persists
+// across grid steps; at step k it receives plane k and advances level v to
+// plane k - v. CUDA blocks run at once and in no order (ROADMAP Trap 1),
+// and a whole f32 plane at 512^2 is 1 MiB, so here a block owns a (y, x)
+// tile of outputs and a z range, and marches z over a window of the tile
+// plus a kT-cell apron on every side (and kT planes more at each end of
+// the range). A thread owns kRows3 consecutive window rows of one column.
+// Level v of plane j needs level v - 1 of planes j - 1, j and j + 1: the
+// thread keeps, per level, its cells' last two planes in registers (the z
+// neighbours, and the y neighbours inside its rows), and the block keeps,
+// per level, the window's two newest planes in shared memory, plane j at
+// parity j & 1 (the x neighbours, and the y neighbours across two
+// threads' rows). At march step k the thread loads level 0 of plane k + 1
+// ahead (its latency hides behind the step), and for v = 1..kT publishes
+// level v - 1 of plane k - v + 1 and computes level v of plane k - v from
+// level v - 1 of plane k - v, which the step before published in the other
+// parity: one barrier a step, where a single plane a level would need one
+// a level. Level v is valid on the window shrunk by v cells a side
+// and on the planes of the range widened by kT - v; the rest of the window
+// computes nothing. Every level keeps the global shell (the y/x ring and
+// the planes 0 and nz - 1) at its previous level's value, as the TPU
+// kernel re-freezes it each level: a frozen cell is an information
+// barrier, so no cell outside the field is ever read. kT levels a launch;
+// the wrapper chains more through an f32 scratch field.
+//
+// What bounds it: a pass reads and writes the field once (2 * N * itemsize
+// bytes) for t steps of 6 operations a cell. The apron costs on top: the
+// window's (1 + 2t / tile)^2 of the tile's loads (from L2 mostly: the
+// neighbouring tiles read the same cells), and levels below t computed on
+// the wider windows; and the block's barrier a plane. On the H100 a level
+// costs most (PERF.md), so the default tile is the largest window a block
+// holds: 56 x 56 outputs, 64 x 64 cells at t = 4.
+// ---------------------------------------------------------------------------
+// the most steps one launch runs (the wrapper's T_MAX for 3D): one kernel
+// instantiation each
+constexpr int kTMax3 = 4;
+// the window rows a thread owns, and the most threads a block has
+constexpr int kRows3 = 4;
+constexpr int kMaxThreads3 = 1024;
+
+template <typename Tin, typename Tout, int kT>
+__global__ void __launch_bounds__(kMaxThreads3)
+    jacobi3d_multi_kernel(const Tin* __restrict__ u, Tout* __restrict__ out,
+                          int nz, int ny, int nx, int tile_y, int tile_x) {
+  // plane j of level v (0 .. kT - 1) of the window at
+  // lev + (2 * v + (j & 1)) * cells
+  extern __shared__ float lev[];
+  const float sixth = static_cast<float>(1.0 / 6.0);
+  const int wx = blockDim.x;
+  const int wy = tile_y + 2 * kT;
+  const int cells = wx * blockDim.y * kRows3;
+  const int tx = threadIdx.x;
+  const int r0 = threadIdx.y * kRows3;  // this thread's first window row
+  const int gx = static_cast<int>(blockIdx.x) * tile_x - kT + tx;
+  const int gy0 = static_cast<int>(blockIdx.y) * tile_y - kT + r0;
+  const int dx = min(tx, wx - 1 - tx);
+  // per row: the levels the cell takes part in (v <= dep; -1: none, the
+  // cell lies outside the field or the window), and whether it is on the
+  // global y/x ring (bit i)
+  int dep[kRows3];
+  unsigned ring = 0;
+#pragma unroll
+  for (int i = 0; i < kRows3; ++i) {
+    const int r = r0 + i;
+    const int gy = gy0 + i;
+    const bool in = gx >= 0 && gx < nx && gy >= 0 && gy < ny && r < wy;
+    dep[i] = in ? min(dx, min(r, wy - 1 - r)) : -1;
+    if (gy == 0 || gy == ny - 1 || gx == 0 || gx == nx - 1) ring |= 1u << i;
+  }
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
+  const int64_t col = static_cast<int64_t>(gy0) * nx + gx;  // row r0's cell
+  const int z0 = static_cast<int>(int64_t{nz} * blockIdx.z / gridDim.z);
+  const int z1 = static_cast<int>(int64_t{nz} * (blockIdx.z + 1) / gridDim.z);
+  // level v is computed on the planes [lo(v), hi(v))
+  auto lo = [&](int v) { return max(z0 - kT + v, 0); };
+  auto hi = [&](int v) { return min(z1 + kT - v, nz); };
+  auto load = [&](int p, float (&dst)[kRows3]) {
+#pragma unroll
+    for (int i = 0; i < kRows3; ++i) {
+      if (dep[i] >= 0) dst[i] = widen(u[p * plane + col + i * nx]);
+    }
+  };
+  // per level below kT: this thread's cells' last two planes (prev the
+  // older)
+  float prev[kT][kRows3];
+  float cur[kT][kRows3];
+  float ahead[kRows3];
+#pragma unroll
+  for (int i = 0; i < kRows3; ++i) {
+    ahead[i] = 0.0f;
+#pragma unroll
+    for (int v = 0; v < kT; ++v) prev[v][i] = cur[v][i] = 0.0f;
+  }
+  if (lo(0) < hi(0)) load(lo(0), ahead);
+  for (int k = lo(0); k < z1 + kT; ++k) {
+    // level 0 of plane k, and the load of plane k + 1
+    float fresh[kRows3];
+#pragma unroll
+    for (int i = 0; i < kRows3; ++i) fresh[i] = ahead[i];
+    bool have = k < hi(0);
+    if (k + 1 < hi(0)) load(k + 1, ahead);
+#pragma unroll
+    for (int v = 1; v <= kT; ++v) {
+      const int j = k - v;
+      const bool act = j >= lo(v) && j < hi(v);
+      const bool face = j == 0 || j == nz - 1;
+      // level v - 1 of plane j + 1 (just computed) is published, and of
+      // plane j (published the step before) read, at this thread's first
+      // cell
+      const int at = r0 * wx + tx;
+      float* newer = lev + (2 * (v - 1) + ((j + 1) & 1)) * cells + at;
+      const float* below = lev + (2 * (v - 1) + (j & 1)) * cells + at;
+      if (have) {
+#pragma unroll
+        for (int i = 0; i < kRows3; ++i) newer[i * wx] = fresh[i];
+      }
+      float res[kRows3];
+#pragma unroll
+      for (int i = 0; i < kRows3; ++i) {
+        res[i] = 0.0f;
+        if (act && dep[i] >= v) {
+          if (face || (ring >> i & 1u)) {
+            res[i] = cur[v - 1][i];
+          } else {
+            const float ym = i > 0 ? cur[v - 1][i - 1] : below[-wx];
+            const float yp =
+                i < kRows3 - 1 ? cur[v - 1][i + 1] : below[kRows3 * wx];
+            res[i] = __fmul_rn(
+                __fadd_rn(__fadd_rn(__fadd_rn(prev[v - 1][i], fresh[i]),
+                                    __fadd_rn(ym, yp)),
+                          __fadd_rn(below[i * wx - 1], below[i * wx + 1])),
+                sixth);
+          }
+        }
+      }
+      if (have) {
+#pragma unroll
+        for (int i = 0; i < kRows3; ++i) {
+          prev[v - 1][i] = cur[v - 1][i];
+          cur[v - 1][i] = fresh[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows3; ++i) fresh[i] = res[i];
+      have = act;
+    }
+    const int j = k - kT;
+    if (j >= z0 && j < z1) {
+#pragma unroll
+      for (int i = 0; i < kRows3; ++i) {
+        if (dep[i] >= kT) {
+          out[j * plane + col + i * nx] = narrow<Tout>(fresh[i]);
+        }
+      }
+    }
+    // this step's publications are visible, and its reads done before the
+    // next step overwrites their parity
+    __syncthreads();
+  }
+}
+
 // grid.y is limited to 65535 blocks
 constexpr int kMaxGridY = 65535;
 
@@ -506,6 +677,65 @@ int launch2d(const void* u, void* out, int ny, int nx, int in_dtype,
   });
 }
 
+template <typename Tin, typename Tout, int kT>
+int launch3d_t(const void* u, void* out, int nz, int ny, int nx, int tile_y,
+               int tile_x, cudaStream_t stream) {
+  auto kernel = jacobi3d_multi_kernel<Tin, Tout, kT>;
+  static const int opted = allow_smem(kernel);
+  if (opted != 0) return opted;
+  const dim3 block(tile_x + 2 * kT, (tile_y + 2 * kT + kRows3 - 1) / kRows3);
+  const size_t smem = static_cast<size_t>(2 * kT) * block.x * block.y *
+                      kRows3 * sizeof(float);
+  const int tiles_x = (nx + tile_x - 1) / tile_x;
+  const int tiles_y = (ny + tile_y - 1) / tile_y;
+  // z ranges: enough for four waves of resident blocks (one leaves SMs
+  // idle behind the blocks' barriers); each adds 2 * kT planes of apron
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, static_cast<int>(block.x * block.y), smem);
+  }
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = static_cast<int64_t>(tiles_x) * tiles_y;
+  const int64_t resident =
+      static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  int64_t ranges = (4 * resident + tiles - 1) / tiles;
+  const int64_t most = nz < kMaxGridY ? nz : kMaxGridY;
+  ranges = ranges < 1 ? 1 : (ranges > most ? most : ranges);
+  const dim3 grid(tiles_x, tiles_y, static_cast<unsigned>(ranges));
+  kernel<<<grid, block, smem, stream>>>(static_cast<const Tin*>(u),
+                                        static_cast<Tout*>(out), nz, ny, nx,
+                                        tile_y, tile_x);
+  return cudaGetLastError();
+}
+
+template <typename Tin, typename Tout>
+int launch3d(const void* u, void* out, int nz, int ny, int nx, int tile_y,
+             int tile_x, int t, cudaStream_t stream) {
+  switch (t) {
+    case 1:
+      return launch3d_t<Tin, Tout, 1>(u, out, nz, ny, nx, tile_y, tile_x,
+                                      stream);
+    case 2:
+      return launch3d_t<Tin, Tout, 2>(u, out, nz, ny, nx, tile_y, tile_x,
+                                      stream);
+    case 3:
+      return launch3d_t<Tin, Tout, 3>(u, out, nz, ny, nx, tile_y, tile_x,
+                                      stream);
+    case 4:
+      return launch3d_t<Tin, Tout, 4>(u, out, nz, ny, nx, tile_y, tile_x,
+                                      stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // C interface. Each launcher enqueues one kernel on `stream` and returns
@@ -544,6 +774,26 @@ int tc_stencil9_multi(const void* u, void* out, int ny, int nx, int in_dtype,
                       int t, void* stream) {
   return launch2d<true>(u, out, ny, nx, in_dtype, out_dtype, periodic,
                         tile_y, tile_x, t, stream);
+}
+
+int tc_jacobi3d_multi(const void* u, void* out, int nz, int ny, int nx,
+                      int in_dtype, int out_dtype, int periodic, int tile_y,
+                      int tile_x, int t, void* stream) {
+  // dirichlet only, as the TPU arm: the frozen shell is the barrier
+  if (nz < 2 || ny < 3 || nx < 3 || periodic || t < 1 || t > kTMax3 ||
+      tile_y < 1 || tile_x < 1 ||
+      static_cast<int64_t>(tile_x + 2 * t) *
+              ((tile_y + 2 * t + kRows3 - 1) / kRows3) >
+          kMaxThreads3 ||
+      (ny + tile_y - 1) / tile_y > kMaxGridY) {
+    return cudaErrorInvalidValue;
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  return with_dtypes(in_dtype, out_dtype, [&](auto ti, auto to) {
+    using Tin = typename decltype(ti)::type;
+    using Tout = typename decltype(to)::type;
+    return launch3d<Tin, Tout>(u, out, nz, ny, nx, tile_y, tile_x, t, s);
+  });
 }
 
 const char* tc_error_string(int code) {

@@ -1,8 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels for one Jacobi step of the 1D and 2D
-// star as ring-buffered block streams: the port of the TPU `pallas-wave`
-// kernels
+// star and of the 9-point and 27-point box as ring-buffered block streams:
+// the port of the TPU `pallas-wave` kernels
 //   tpu_comm/kernels/jacobi1d.py _jacobi1d_wave_kernel (step_pallas_wave)
 //   tpu_comm/kernels/jacobi2d.py _jacobi2d_wave_kernel (step_pallas_wave)
+//   tpu_comm/kernels/stencil9.py _stencil9_wave_kernel (step_pallas_wave)
+//   tpu_comm/kernels/stencil27.py _stencil27_wave_kernel (step_pallas_wave)
 // Dirichlet only, as the TPU arm: the launchers refuse periodic.
 //
 // Built by tpu_comm_torch/kernels/_build.py with
@@ -11,10 +13,15 @@
 // PyTorch header is included: the Python wrappers pass raw device
 // pointers and the current CUDA stream, and raise on a non-zero return.
 //
-// Numerical contract (shared with step_plain in kernels/jacobi1d.py and
-// kernels/jacobi2d.py): every element is widened to f32 and
-//   1D  (prev + next) * 0.5f
-//   2D  ((up + down) + (left + right)) * 0.25f
+// Numerical contract (shared with step_plain in kernels/jacobi1d.py,
+// kernels/jacobi2d.py, kernels/stencil9.py and kernels/stencil27.py):
+// every element is widened to f32 and
+//   1D        (prev + next) * 0.5f
+//   2D star   ((up + down) + (left + right)) * 0.25f
+//   9-point   box8 * 0.125f, box8 = ((up + down) + (left + right))
+//             + ((ul + dr) + (ur + dl))
+//   27-point  ((full9(z-1) + full9(z+1)) + box8(z)) * (float)(1.0 / 26.0),
+//             full9(p) = box8(p) + p (csrc/box.cu's association)
 // is narrowed once, round-to-nearest-even; a cell on the boundary ring
 // keeps its input value. __fadd_rn/__fmul_rn are never contracted into an
 // FMA, and -fmad=false guards the rest, so f32 results are bitwise equal
@@ -49,7 +56,17 @@
 // are an f32 ring's. The launcher sizes the grid to one wave of resident
 // CTAs, which makes the ranges as long as the card allows.
 //
-// What bounds both on this card: memory, 2 * N * itemsize bytes a step.
+// The 9-point box is the 2D strip ring with the box sum: the diagonals come
+// from the same staged rows. The 27-point box cannot keep whole planes (an
+// f32 plane at 512^2 is 1 MiB, a CTA has 227 KB of shared memory), so a
+// CTA owns a tile of ty rows of a strip and streams a z range of it: a
+// ring entry is one plane of the tile with a halo row above and below (and
+// the strip's halo columns in every row), and the planes just outside the
+// range are two more entries of the same stream, read once more. Its
+// consumers take each plane's sums into registers at once, so a ring of
+// kSlots27 entries keeps the producer two planes ahead.
+//
+// What bounds them on this card: memory, 2 * N * itemsize bytes a step.
 
 #include "staging.cuh"
 
@@ -61,17 +78,24 @@ constexpr int kConsumerWarps = kConsumers / 32;
 constexpr int kThreads = kConsumers + 32;
 // the ring's slots: blocks j - 1 and j, and up to kSlots - 2 ahead
 constexpr int kSlots = 4;
+// the 27-point ring's: its consumers hold one plane at a time, so the
+// producer runs up to kSlots27 - 1 ahead
+constexpr int kSlots27 = 3;
 // the 2D strip's width
 constexpr int kStripX = kConsumers;
+// grid.y and grid.z are limited to 65535 blocks
+constexpr int kMaxGrid = 65535;
 
 // the ring slot of block j in a range that starts at block j0, and the
 // parity of the slot's barrier phase that block j's fill (`full`) or
-// hand-back (`empty`) completes
+// hand-back (`empty`) completes, in a ring of kN slots
+template <int kN = kSlots>
 __device__ __forceinline__ int slot_of(int64_t j, int64_t j0) {
-  return static_cast<int>((j - j0) % kSlots);
+  return static_cast<int>((j - j0) % kN);
 }
+template <int kN = kSlots>
 __device__ __forceinline__ uint32_t parity_of(int64_t j, int64_t j0) {
-  return static_cast<uint32_t>(((j - j0) / kSlots) & 1);
+  return static_cast<uint32_t>(((j - j0) / kN) & 1);
 }
 
 // The consumers are done with block j - 1 once block j is computed: each
@@ -85,11 +109,12 @@ __device__ __forceinline__ void hand_back(uint64_t* empty, int64_t j,
 }
 
 // The producer waits until block j's slot is free: the consumers handed
-// back the block kSlots earlier.
+// back the block kN earlier.
+template <int kN = kSlots>
 __device__ __forceinline__ void wait_free(uint64_t* empty, int64_t j,
                                           int64_t j0) {
-  if (j - j0 >= kSlots) {
-    mbar_wait(&empty[slot_of(j, j0)], parity_of(j - kSlots, j0));
+  if (j - j0 >= kN) {
+    mbar_wait(&empty[slot_of<kN>(j, j0)], parity_of<kN>(j - kN, j0));
   }
 }
 
@@ -175,21 +200,31 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// 2D: a block is `rb` rows of a strip of kStripX columns; CTA (s, b)
-// streams strip s's blocks [nb * b / G, nb * (b + 1) / G) (G = gridDim.y).
-// A staged row holds the strip and its halo columns. Producer lane r
-// stages the block's rows r, r + 32, ... and arrives once on the slot's
-// barrier; consumer x computes column x of every row.
+// 2D star and 9-point box (kBox): a block is `rb` rows of a strip of
+// kStripX columns; CTA (s, b) streams strip s's blocks
+// [nb * b / G, nb * (b + 1) / G) (G = gridDim.y). A staged row holds the
+// strip and its halo columns. Producer lane r stages the block's rows r,
+// r + 32, ... and arrives once on the slot's barrier; consumer x computes
+// column x of every row, the box's diagonals from columns x - 1 and x + 1
+// of the rows above and below.
 // ---------------------------------------------------------------------------
 template <typename T>
 __host__ __device__ constexpr int64_t pitch2d() {
   return staged_bytes(kStripX + 2, sizeof(T));
 }
 
-template <typename T>
+// the 8-neighbour sum of the golden (csrc/box.cu's box8)
+__device__ __forceinline__ float box8(float up, float down, float left,
+                                      float right, float ul, float ur,
+                                      float dl, float dr) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(up, down), __fadd_rn(left, right)),
+                   __fadd_rn(__fadd_rn(ul, dr), __fadd_rn(ur, dl)));
+}
+
+template <typename T, bool kBox>
 __global__ void __launch_bounds__(kThreads)
-    jacobi2d_wave_kernel(const T* __restrict__ u, T* __restrict__ out,
-                         int ny, int nx, int rb) {
+    wave2d_kernel(const T* __restrict__ u, T* __restrict__ out, int ny,
+                  int nx, int rb) {
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ __align__(8) uint64_t full[kSlots + 1];  // the last: halo rows
   __shared__ __align__(8) uint64_t empty[kSlots];
@@ -285,6 +320,12 @@ __global__ void __launch_bounds__(kThreads)
         float v;
         if (y == 0 || y == ny - 1 || x == 0 || x == nx - 1) {
           v = widen(mid[k]);
+        } else if (kBox) {
+          v = __fmul_rn(
+              box8(widen(up[k]), widen(down[k]), widen(mid[k - 1]),
+                   widen(mid[k + 1]), widen(up[k - 1]), widen(up[k + 1]),
+                   widen(down[k - 1]), widen(down[k + 1])),
+              0.125f);
         } else {
           v = __fmul_rn(
               __fadd_rn(__fadd_rn(widen(up[k]), widen(down[k])),
@@ -297,6 +338,175 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     hand_back(empty, j, j0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 27-point box: CTA (s, b, r) owns the tile of rows [b * ty, (b + 1) * ty)
+// of strip s and the z range r of [nz * r / G, nz * (r + 1) / G)
+// (G = gridDim.z). It streams the planes of its range and the one just
+// outside each end, each as one ring entry: the tile's rows and a halo row
+// above and below (buffer row y - y0 + 1 holds row y), staged as the 2D
+// rows are. Consumer x owns column x of the tile's rows. When plane p
+// lands it slides a 3 x 3 window down the entry (three shared loads a
+// row), takes box8 and full9 = box8 + centre of each row once and hands
+// the slot back at once; from the registers it keeps a row (full9 of
+// p - 2, box8 and full9 of p - 1, the centre of p - 1) it emits plane
+// p - 1:
+//   out = ((full9(p - 2) + full9(p)) + box8(p - 1)) * inv26
+// _accum27's association, each plane's sums taken once where the TPU
+// kernel takes box8 of all three planes for every output plane. So the
+// producer runs up to kSlots27 - 1 planes ahead. kRows bounds ty: the per-row
+// registers are indexed at compile time. A frozen cell (the shell) emits
+// its centre, so the rows and columns past the field's edge, read as
+// whatever the buffer holds, never reach an output.
+// ---------------------------------------------------------------------------
+template <typename T, int kRows>
+__global__ void __launch_bounds__(kThreads)
+    stencil27_wave_kernel(const T* __restrict__ u, T* __restrict__ out,
+                          int nz, int ny, int nx, int ty) {
+  extern __shared__ __align__(16) uint8_t ring[];
+  __shared__ __align__(8) uint64_t full[kSlots27];
+  __shared__ __align__(8) uint64_t empty[kSlots27];
+  constexpr int64_t kPitch = pitch2d<T>();
+  const float inv26 = static_cast<float>(1.0 / 26.0);
+  const int64_t slot_bytes = (ty + 2) * kPitch;
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
+  const int z0 = static_cast<int>(int64_t{nz} * blockIdx.z / gridDim.z);
+  const int z1 = static_cast<int>(int64_t{nz} * (blockIdx.z + 1) / gridDim.z);
+  // the planes streamed: the range and one more each side
+  const int64_t pa = z0 > 0 ? z0 - 1 : 0;
+  const int64_t pb = z1 < nz ? z1 + 1 : nz;
+  const int y0 = blockIdx.y * ty;
+  const int y1 = y0 + ty < ny ? y0 + ty : ny;
+  const int x0 = blockIdx.x * kStripX;
+  const int64_t c0 = x0 > 0 ? x0 - 1 : 0;
+  const int64_t c1 = x0 + kStripX + 1 < nx ? x0 + kStripX + 1 : nx;
+  auto entry = [&](int64_t p) {
+    return ring + slot_of<kSlots27>(p, pa) * slot_bytes;
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots27; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    const Field f = field_of(u, nz * plane);
+    // the staged rows: the tile's and its halo rows inside the field
+    const int ya = y0 > 0 ? y0 - 1 : 0;
+    const int yb = y1 < ny ? y1 + 1 : ny;
+    for (int64_t p = pa; p < pb; ++p) {
+      wait_free<kSlots27>(empty, p, pa);
+      uint8_t* dst = entry(p);
+      uint64_t* bar = &full[slot_of<kSlots27>(p, pa)];
+      uint32_t bytes = 0;
+      for (int y = ya + lane; y < yb; y += 32) {
+        const T* row = u + p * plane + static_cast<int64_t>(y) * nx;
+        const RowPlan<T> pl = plan_row(row, nx, c0, c1, f);
+        load_plain(pl, row, nx, c0, c1, dst + (y - y0 + 1) * kPitch, 0, 1);
+        bytes += bulk_bytes(pl);
+      }
+      mbar_arrive(bar, bytes);
+      for (int y = ya + lane; y < yb; y += 32) {
+        const T* row = u + p * plane + static_cast<int64_t>(y) * nx;
+        issue_bulk(plan_row(row, nx, c0, c1, f), dst + (y - y0 + 1) * kPitch,
+                   bar);
+      }
+    }
+    return;
+  }
+  const int x = x0 + static_cast<int>(threadIdx.x);
+  const bool live = x < nx;
+  const bool edge_col = x == 0 || x == nx - 1;
+  const int rows = y1 - y0;
+  // column x and its neighbours in a staged row (a frozen column reads
+  // only its own)
+  const int64_t k = x - c0;
+  const int64_t kl = edge_col ? k : k - 1;
+  const int64_t kr = edge_col ? k : k + 1;
+  // a row's bytes in global memory: a staged row lies at its global
+  // address modulo 16, which moves by this much a row
+  const uintptr_t row_bytes = static_cast<uintptr_t>(nx) * sizeof(T);
+  // the three cells around column x of the staged row at `srow`, whose
+  // column c0 lies at global address `ga`
+  auto cells = [&](const uint8_t* srow, uintptr_t ga, float (&w)[3]) {
+    const T* r = reinterpret_cast<const T*>(srow + (ga & 15));
+    w[0] = widen(r[kl]);
+    w[1] = widen(r[k]);
+    w[2] = widen(r[kr]);
+  };
+  // per tile row: full9 of plane p - 2, box8, full9 and the centre of p - 1
+  float f9m[kRows];
+  float b8c[kRows];
+  float f9c[kRows];
+  float cen[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) f9m[r] = b8c[r] = f9c[r] = cen[r] = 0.0f;
+  for (int64_t p = pa; p < pb; ++p) {
+    mbar_wait(&full[slot_of<kSlots27>(p, pa)], parity_of<kSlots27>(p, pa));
+    const int64_t z = p - 1;  // the plane this one completes
+    const bool emit = z >= z0 && z < z1;
+    const bool face = z == 0 || z == nz - 1;
+    if (live) {
+      // buffer row 0 and the global address of its column c0: row y0 - 1
+      const uint8_t* srow = entry(p);
+      uintptr_t ga = reinterpret_cast<uintptr_t>(u) +
+                     static_cast<uintptr_t>(
+                         (p * plane + static_cast<int64_t>(y0 - 1) * nx + c0) *
+                         static_cast<int64_t>(sizeof(T)));
+      float a[3];  // rows y - 1, y and y + 1
+      float c[3];
+      float b[3];
+      cells(srow, ga, a);
+      cells(srow + kPitch, ga + row_bytes, c);
+      srow += 2 * kPitch;
+      ga += 2 * row_bytes;
+      T* o = out + z * plane + static_cast<int64_t>(y0) * nx + x;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < rows) {
+          cells(srow, ga, b);
+          srow += kPitch;
+          ga += row_bytes;
+          const float b8 =
+              box8(a[1], b[1], c[0], c[2], a[0], a[2], b[0], b[2]);
+          const float f9 = __fadd_rn(b8, c[1]);
+          if (emit) {
+            const int y = y0 + r;
+            const float v =
+                (face || edge_col || y == 0 || y == ny - 1)
+                    ? cen[r]
+                    : __fmul_rn(__fadd_rn(__fadd_rn(f9m[r], f9), b8c[r]),
+                                inv26);
+            o[static_cast<int64_t>(r) * nx] = narrow<T>(v);
+          }
+          f9m[r] = f9c[r];
+          b8c[r] = b8;
+          f9c[r] = f9;
+          cen[r] = c[1];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            a[i] = c[i];
+            c[i] = b[i];
+          }
+        }
+      }
+    }
+    // plane p is done with: each consumer warp hands its slot back
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[slot_of<kSlots27>(p, pa)], 0);
+  }
+  // the field's last plane, a frozen face, has no plane after it
+  if (live && z1 == nz) {
+    T* o = out + (nz - 1) * plane + static_cast<int64_t>(y0) * nx + x;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < rows) o[static_cast<int64_t>(r) * nx] = narrow<T>(cen[r]);
+    }
   }
 }
 
@@ -339,10 +549,10 @@ int launch1d(const void* u, void* out, int64_t n, int rows,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kBox>
 int launch2d(const void* u, void* out, int ny, int nx, int rb,
              cudaStream_t stream) {
-  auto kernel = jacobi2d_wave_kernel<T>;
+  auto kernel = wave2d_kernel<T, kBox>;
   static const int opted = allow_smem(kernel);
   if (opted != 0) return opted;
   const int64_t smem = (kSlots * static_cast<int64_t>(rb) + 2) * pitch2d<T>();
@@ -358,6 +568,63 @@ int launch2d(const void* u, void* out, int ny, int nx, int rb,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(u), static_cast<T*>(out), ny, nx, rb);
   return cudaGetLastError();
+}
+
+template <typename T, int kRows>
+int launch27_rows(const void* u, void* out, int nz, int ny, int nx, int ty,
+                  cudaStream_t stream) {
+  auto kernel = stencil27_wave_kernel<T, kRows>;
+  static const int opted = allow_smem(kernel);
+  if (opted != 0) return opted;
+  const int64_t smem =
+      kSlots27 * (static_cast<int64_t>(ty) + 2) * pitch2d<T>();
+  const int64_t tiles = (ny + static_cast<int64_t>(ty) - 1) / ty;
+  if (smem > kMaxSmem || tiles > kMaxGrid) return cudaErrorInvalidValue;
+  int resident = 0;
+  const int err = resident_ctas(kernel, smem, &resident);
+  if (err != 0) return err;
+  const int strips = (nx + kStripX - 1) / kStripX;
+  // z ranges: as many as two waves of resident CTAs leave room for (one
+  // wave leaves SMs idle where the tiles do not divide it)
+  int64_t ranges = 2 * resident / (strips * tiles);
+  const int64_t most = nz < kMaxGrid ? nz : kMaxGrid;
+  ranges = ranges < 1 ? 1 : (ranges > most ? most : ranges);
+  const dim3 grid(strips, static_cast<unsigned>(tiles),
+                  static_cast<unsigned>(ranges));
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(u),
+                                           static_cast<T*>(out), nz, ny, nx,
+                                           ty);
+  return cudaGetLastError();
+}
+
+// the most tile rows of the 27-point wave (tiling.py WAVE3D_MAX_ROWS)
+constexpr int kMaxRows27 = 16;
+
+template <typename T>
+int launch27(const void* u, void* out, int nz, int ny, int nx, int ty,
+             cudaStream_t stream) {
+  if (ty <= 8) return launch27_rows<T, 8>(u, out, nz, ny, nx, ty, stream);
+  if (ty <= kMaxRows27) {
+    return launch27_rows<T, kMaxRows27>(u, out, nz, ny, nx, ty, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <bool kBox>
+int wave2d(const void* u, void* out, int ny, int nx, int dtype, int periodic,
+           int rows, void* stream) {
+  if (ny < 3 || nx < 3 || periodic || rows < 1) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return launch2d<float, kBox>(u, out, ny, nx, rows, s);
+    case kBFloat16:
+      return launch2d<__nv_bfloat16, kBox>(u, out, ny, nx, rows, s);
+    case kFloat16:
+      return launch2d<__half, kBox>(u, out, ny, nx, rows, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -386,15 +653,27 @@ int tc_jacobi1d_wave(const void* u, void* out, int64_t n, int dtype,
 
 int tc_jacobi2d_wave(const void* u, void* out, int ny, int nx, int dtype,
                      int periodic, int rows, void* stream) {
-  if (ny < 3 || nx < 3 || periodic || rows < 1) return cudaErrorInvalidValue;
+  return wave2d<false>(u, out, ny, nx, dtype, periodic, rows, stream);
+}
+
+int tc_stencil9_wave(const void* u, void* out, int ny, int nx, int dtype,
+                     int periodic, int rows, void* stream) {
+  return wave2d<true>(u, out, ny, nx, dtype, periodic, rows, stream);
+}
+
+int tc_stencil27_wave(const void* u, void* out, int nz, int ny, int nx,
+                      int dtype, int periodic, int rows, void* stream) {
+  if (nz < 2 || ny < 3 || nx < 3 || periodic || rows < 1) {
+    return cudaErrorInvalidValue;
+  }
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return launch2d<float>(u, out, ny, nx, rows, s);
+      return launch27<float>(u, out, nz, ny, nx, rows, s);
     case kBFloat16:
-      return launch2d<__nv_bfloat16>(u, out, ny, nx, rows, s);
+      return launch27<__nv_bfloat16>(u, out, nz, ny, nx, rows, s);
     case kFloat16:
-      return launch2d<__half>(u, out, ny, nx, rows, s);
+      return launch27<__half>(u, out, nz, ny, nx, rows, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -50,6 +50,8 @@ SIGNATURES = {
     "tc_jacobi2d_grid": (_P, _P, _I, _I, _I, _I, _I, _P),
     "tc_jacobi1d_wave": (_P, _P, _N, _I, _I, _I, _P),
     "tc_jacobi2d_wave": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "tc_stencil9_wave": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "tc_stencil27_wave": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tc_jacobi2d_stream": (_P, _P, _I, _I, _I, _I, _I, _P),
     "tc_jacobi3d_stream": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tc_jacobi1d_block": (_P, _P, _N, _I, _I, _P),
@@ -62,6 +64,7 @@ SIGNATURES = {
     "tc_jacobi1d_multi": (_P, _P, _N, _I, _I, _I, _I, _I, _P),
     "tc_jacobi2d_multi": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "tc_stencil9_multi": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "tc_jacobi3d_multi": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "tc_pack_faces": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tc_membw_chunked": (_P, _P, _P, _N, _I, _I, ctypes.c_float, _I, _P),
     "tc_membw_stream": (_P, _P, _N, _I, _I, _P),

@@ -2,8 +2,10 @@
 kernels.
 
 Port of ``tpu_comm/kernels/stencil27.py``'s ``pallas-stream`` arm
-(``step_pallas_stream`` and its kernel ``_stencil27_stream_kernel``) and
-``pallas`` arm (``step_pallas`` and its kernel ``_stencil27_kernel``).
+(``step_pallas_stream`` and its kernel ``_stencil27_stream_kernel``),
+``pallas`` arm (``step_pallas`` and its kernel ``_stencil27_kernel``) and
+``pallas-wave`` arm (``step_pallas_wave`` and its kernel
+``_stencil27_wave_kernel``).
 
 Update rule: the mean of the 26 box neighbours,
 u' = ((full9(zm) + full9(zp)) + box8(u)) * f32(1/26), where box8 is the
@@ -22,6 +24,10 @@ Boundary: ``dirichlet`` freezes the one-cell shell; ``periodic`` wraps.
 - ``step_block``  — the wrapper of ``stencil27_block_kernel`` in
   ``csrc/box.cu``, the port of the TPU's plane-pipelined kernel. It is
   the distributed step's ``block`` local update and a single-device arm.
+- ``step_wave``   — the wrapper of ``stencil27_wave_kernel`` in
+  ``csrc/wave.cu``: each CTA streams a z range of a tile (rows of a
+  256-column strip) through a ring of plane tiles in shared memory.
+  Dirichlet only, on every device, as JAX's arm.
 """
 
 from __future__ import annotations
@@ -34,14 +40,27 @@ from tpu_comm_torch.kernels.jacobi3d import default_chunk
 from tpu_comm_torch.kernels import padded
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
+    WAVE3D_MAX_ROWS,
     check_kernel_args,
+    check_staged_smem,
+    check_wave_bc,
     f32_compute,
     launch_stencil,
     narrow_store,
+    staged_default_rows,
+    wave_smem,
 )
 
 #: the f32 constant of the golden (1/26 rounded once), as an exact float
 INV26 = float(np.float32(1.0 / 26.0))
+
+
+def default_wave_chunk(shape: tuple) -> int:
+    """The tile rows of a ``step_wave`` CTA when the caller passes none:
+    the most, a multiple of 8, whose float32 ring fits
+    ``tiling.STAGED_SMEM_TARGET``. It sets the grid, never the result."""
+    del shape
+    return staged_default_rows(wave_smem, 3)
 
 
 def _box8(p: torch.Tensor) -> torch.Tensor:
@@ -110,6 +129,38 @@ def step_block(u: torch.Tensor, bc: str = "dirichlet",
 
 step_block.launches = 0
 
+
+def step_wave(u: torch.Tensor, bc: str = "dirichlet",
+              rows_per_chunk: int | None = None,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 27-point step by ring-buffered plane-tile streams: the CUDA
+    kernel for a CUDA tensor, ``step_plain`` for a CPU tensor; dirichlet
+    only, on either. A CTA owns a tile of ``rows_per_chunk`` rows (default
+    :func:`default_wave_chunk`, at most ``tiling.WAVE3D_MAX_ROWS``) of a
+    256-column strip and a range of its planes. Writes into ``out`` (which
+    must not alias ``u``) when given. ``step_wave.launches`` counts kernel
+    launches."""
+    check_bc(bc)
+    check_wave_bc(bc)
+    if u.device.type == "cpu":
+        return step_plain(u, bc, out)
+    out = check_kernel_args(u, 3, out, min_extents=(2, 3, 3))
+    if rows_per_chunk is None:
+        rows_per_chunk = default_wave_chunk(u.shape)
+    check_staged_smem("wave", wave_smem(3, rows_per_chunk, u.element_size()),
+                      rows_per_chunk)
+    if rows_per_chunk > WAVE3D_MAX_ROWS:
+        raise ValueError(
+            f"chunk {rows_per_chunk}: the 27-point wave kernel keeps a tile "
+            f"row's sums in registers, at most {WAVE3D_MAX_ROWS} rows"
+        )
+    launch_stencil("tc_stencil27_wave", u, out, bc, rows_per_chunk)
+    step_wave.launches += 1
+    return out
+
+
+step_wave.launches = 0
+
 def step_torch(u: torch.Tensor, bc: str = "dirichlet",
                out: torch.Tensor | None = None) -> torch.Tensor:
     """One 27-point step in plain PyTorch in the field's dtype (JAX's
@@ -117,7 +168,8 @@ def step_torch(u: torch.Tensor, bc: str = "dirichlet",
     return padded.step_torch(u, bc, "27pt", out)
 
 
-STEPS = {"torch": step_torch, "stream": step_stream, "block": step_block}
+STEPS = {"torch": step_torch, "stream": step_stream, "block": step_block,
+         "wave": step_wave}
 IMPLS = tuple(STEPS)
 
 

@@ -2,9 +2,11 @@
 
 Port of ``tpu_comm/kernels/stencil9.py``'s ``pallas-stream`` arm
 (``step_pallas_stream`` and its kernel ``_stencil9_stream_kernel``),
-``pallas`` arm (``step_pallas`` and its kernel ``_stencil9_kernel``) and
-``pallas-multi`` arm (``step_pallas_multi``, its kernel
-``_stencil9_multi_kernel`` and its edge fix ``_box_edge_band_fix_multi``).
+``pallas`` arm (``step_pallas`` and its kernel ``_stencil9_kernel``),
+``pallas-wave`` arm (``step_pallas_wave`` and its kernel
+``_stencil9_wave_kernel``) and ``pallas-multi`` arm
+(``step_pallas_multi``, its kernel ``_stencil9_multi_kernel`` and its
+edge fix ``_box_edge_band_fix_multi``).
 
 Update rule: the mean of the 8 box neighbours,
 u' = (((up + down) + (left + right)) + ((ul + dr) + (ur + dl))) * 1/8,
@@ -21,6 +23,10 @@ Boundary: ``dirichlet`` freezes the one-cell ring; ``periodic`` wraps.
 - ``step_block``  — the wrapper of ``stencil9_block_kernel`` in
   ``csrc/box.cu``, the port of the TPU's whole-field kernel. It is the
   distributed step's ``block`` local update and a single-device arm.
+- ``step_wave``   — the wrapper of ``wave2d_kernel<T, kBox = true>`` in
+  ``csrc/wave.cu``: each CTA streams a range of row blocks of a
+  256-column strip through a ring in shared memory (the 2D star's wave
+  with the box sum). Dirichlet only, on every device, as JAX's arm.
 - ``step_multi_plain`` — ``t_steps`` steps of ``step_plain``'s f32
   arithmetic, the dirichlet ring kept every step, narrowed once.
 - ``step_multi``  — the wrapper of ``stencil9_multi_kernel`` in
@@ -44,6 +50,7 @@ from tpu_comm_torch.kernels import (
 from tpu_comm_torch.kernels.jacobi2d import (  # noqa: F401
     default_chunk,
     default_multi_chunk,
+    default_wave_chunk,
     freeze_ring,
     launch_multi_2d,
 )
@@ -51,9 +58,12 @@ from tpu_comm_torch.kernels import padded
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
     check_kernel_args,
+    check_staged_smem,
+    check_wave_bc,
     f32_compute,
     launch_stencil,
     narrow_store,
+    wave_smem,
 )
 
 
@@ -125,6 +135,32 @@ def step_block(u: torch.Tensor, bc: str = "dirichlet",
 step_block.launches = 0
 
 
+def step_wave(u: torch.Tensor, bc: str = "dirichlet",
+              rows_per_chunk: int | None = None,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """One 9-point step by ring-buffered row-block streams: the CUDA
+    kernel for a CUDA tensor, ``step_plain`` for a CPU tensor; dirichlet
+    only, on either. A ring block is ``rows_per_chunk`` rows (default
+    :func:`default_wave_chunk`, the 5-point wave's) of a 256-column strip.
+    Writes into ``out`` (which must not alias ``u``) when given.
+    ``step_wave.launches`` counts kernel launches."""
+    check_bc(bc)
+    check_wave_bc(bc)
+    if u.device.type == "cpu":
+        return step_plain(u, bc, out)
+    out = check_kernel_args(u, 2, out)
+    if rows_per_chunk is None:
+        rows_per_chunk = default_wave_chunk(u.shape)
+    check_staged_smem("wave", wave_smem(2, rows_per_chunk, u.element_size()),
+                      rows_per_chunk)
+    launch_stencil("tc_stencil9_wave", u, out, bc, rows_per_chunk)
+    step_wave.launches += 1
+    return out
+
+
+step_wave.launches = 0
+
+
 def step_multi(u: torch.Tensor, bc: str = "dirichlet", t_steps: int = 8,
                rows_per_chunk: int | None = None,
                cols_per_chunk: int | None = None,
@@ -153,7 +189,8 @@ def step_torch(u: torch.Tensor, bc: str = "dirichlet",
     return padded.step_torch(u, bc, "9pt", out)
 
 
-STEPS = {"torch": step_torch, "stream": step_stream, "block": step_block}
+STEPS = {"torch": step_torch, "stream": step_stream, "block": step_block,
+         "wave": step_wave}
 IMPLS = tuple(STEPS)
 
 

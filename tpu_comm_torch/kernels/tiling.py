@@ -202,11 +202,16 @@ def launch_stencil(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
 
 
 #: the most steps one launch of ``csrc/multi.cu`` runs, by field rank
-#: (its kTMax1, kTMax2); a wrapper asked for more chains launches
-MULTI_T_MAX = {1: 256, 2: 16}
+#: (its kTMax1, kTMax2, kTMax3; in 3D one kernel instantiation a step
+#: count); a wrapper asked for more chains launches
+MULTI_T_MAX = {1: 256, 2: 16, 3: 4}
 #: the dynamic shared memory a block may use on sm_90 (``csrc/multi.cu``
 #: kMaxSmem)
 MAX_SMEM_BYTES = 232448
+#: the threads of a CUDA block (``csrc/multi.cu`` kMaxThreads3), and the
+#: window rows of one column a thread of the 3D wavefront owns (kRows3)
+MAX_BLOCK_THREADS = 1024
+MULTI3D_ROWS = 4
 #: grid.y is limited to 65535 blocks
 MAX_GRID_Y = 65535
 
@@ -220,6 +225,11 @@ STAGED_MAX_SMEM = MAX_SMEM_BYTES - 1024
 STAGED_TILE_X = 256
 #: the wave kernels' ring slots (``csrc/wave.cu`` kSlots)
 WAVE_SLOTS = 4
+#: the 27-point wave kernel's ring slots (its consumers hold one plane at
+#: a time) and its most tile rows, whose per-row sums live in registers
+#: (``csrc/wave.cu`` kSlots27, kMaxRows27)
+WAVE3D_SLOTS = 3
+WAVE3D_MAX_ROWS = 16
 #: the shared memory the grid and wave kernels' default chunks give a
 #: float32 CTA (a 2-byte field takes about half): six fit an SM's 227 KB,
 #: 1536 of its 2048 threads, so copies stay in flight while a CTA
@@ -247,10 +257,14 @@ def grid_smem(dim: int, rows: int, itemsize: int) -> int:
 def wave_smem(dim: int, rows: int, itemsize: int) -> int:
     """A wave kernel CTA's ring: ``WAVE_SLOTS`` blocks of ``rows`` x 128
     cells (1D) or of ``rows`` staged strip rows, plus the two halo rows
-    (2D)."""
+    (2D), or ``WAVE3D_SLOTS`` planes of a tile of ``rows`` staged strip
+    rows, each with a halo row above and below (3D, the 27-point box)."""
+    row = staged_bytes(STAGED_TILE_X + 2, itemsize)
     if dim == 1:
         return WAVE_SLOTS * staged_bytes(rows * 128, itemsize)
-    return (WAVE_SLOTS * rows + 2) * staged_bytes(STAGED_TILE_X + 2, itemsize)
+    if dim == 2:
+        return (WAVE_SLOTS * rows + 2) * row
+    return WAVE3D_SLOTS * (rows + 2) * row
 
 
 def staged_default_rows(smem, dim: int) -> int:
@@ -282,6 +296,16 @@ def check_wave_bc(bc: str) -> None:
         )
 
 
+def check_multi3d_bc(bc: str) -> None:
+    """The 3D multi arm is dirichlet only, as JAX's 3D ``pallas-multi``."""
+    if bc != "dirichlet":
+        raise ValueError(
+            "multi in 3D (the wavefront) supports bc='dirichlet' only, as "
+            "JAX's pallas-multi (the frozen shell is the wavefront's "
+            "barrier); use stream for periodic"
+        )
+
+
 def check_t_steps(t_steps: int) -> None:
     """The steps of a temporal-blocking pass: at least 1."""
     if t_steps < 1:
@@ -296,6 +320,42 @@ def multi_passes(t_steps: int, t_max: int) -> list[int]:
     return [t_max] * full + ([rest] if rest else [])
 
 
+def multi3d_threads(tile: tuple[int, int], halo: int) -> int:
+    """The threads of a 3D wavefront block: its window's columns times
+    its rows in groups of :data:`MULTI3D_ROWS`."""
+    return (tile[1] + 2 * halo) * -(-(tile[0] + 2 * halo) // MULTI3D_ROWS)
+
+
+def multi_smem(dim: int, tile: tuple[int, ...], halo: int) -> int:
+    """The shared memory of a multi kernel's block: two float32 buffers of
+    the window (1D, 2D), or two float32 window planes (their rows rounded
+    up to whole thread rows) for each of the ``halo`` levels below the
+    last (3D)."""
+    if dim == 3:
+        return 2 * halo * 4 * MULTI3D_ROWS * multi3d_threads(tile, halo)
+    return 2 * 4 * math.prod(n + 2 * halo for n in tile)
+
+
+def check_multi_tile(dim: int, tile: tuple[int, ...], halo: int) -> None:
+    """Refuse a tile whose window does not fit a block: its shared memory,
+    and in 3D its threads too (:func:`multi3d_threads`)."""
+    if min(tile) < 1:
+        raise ValueError(f"the tile must be >= 1 cell a side, got {tile}")
+    if dim == 3 and multi3d_threads(tile, halo) > MAX_BLOCK_THREADS:
+        raise ValueError(
+            f"tile {tile} with its {halo}-cell apron needs "
+            f"{multi3d_threads(tile, halo)} threads, {MULTI3D_ROWS} window "
+            f"rows of one column a thread; a block has at most "
+            f"{MAX_BLOCK_THREADS}"
+        )
+    smem = multi_smem(dim, tile, halo)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"tile {tile} with its {halo}-cell halo needs {smem} bytes of "
+            f"shared memory; a block has {MAX_SMEM_BYTES}"
+        )
+
+
 def launch_multi(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
                  t_steps: int, tile: tuple[int, ...]) -> int:
     """Launch a temporal-blocking kernel of ``csrc/multi.cu``: ``t_steps``
@@ -304,21 +364,15 @@ def launch_multi(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
     (elements in 1D; rows, columns in 2D). Beyond ``MULTI_T_MAX`` steps
     the pass is chained: a launch from ``u`` into an f32 scratch field,
     launches between two f32 fields, and one from f32 into ``out``, so the
-    field is narrowed once, as in a single launch. Returns the number of
+    field is narrowed once, as in a single launch. ``tile`` is rows,
+    columns in 3D too (the kernel marches z). Returns the number of
     launches."""
     steps = multi_passes(t_steps, MULTI_T_MAX[u.dim()])
     halo = max(steps)
-    smem = 2 * 4 * math.prod(n + 2 * halo for n in tile)
-    if min(tile) < 1:
-        raise ValueError(f"the tile must be >= 1 cell a side, got {tile}")
-    if smem > MAX_SMEM_BYTES:
+    check_multi_tile(u.dim(), tile, halo)
+    if u.dim() > 1 and -(-u.shape[-2] // tile[0]) > MAX_GRID_Y:
         raise ValueError(
-            f"tile {tile} with its {halo}-cell halo needs {smem} bytes of "
-            f"shared memory; a block has {MAX_SMEM_BYTES}"
-        )
-    if u.dim() == 2 and -(-u.shape[0] // tile[0]) > MAX_GRID_Y:
-        raise ValueError(
-            f"{u.shape[0]} rows need tiles of more than {tile[0]} rows "
+            f"{u.shape[-2]} rows need tiles of more than {tile[0]} rows "
             f"(at most {MAX_GRID_Y} tiles down the field)"
         )
     scratch = [torch.empty(u.shape, dtype=torch.float32, device=u.device)
