@@ -24,6 +24,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
      t = 1 (in float32 also equal to one step of the block kernel), a t
      above the kernel's most steps a launch (chained sub-passes), ragged
      shapes and non-default tiles;
+   - the ghost-fed wave kernels of the mesh wave arm (1D, 2D star): 20
+     chained steps with fresh random ghost lines each step, every dtype,
+     at full size, ragged and tiny shapes (one cell, one row, one
+     column), a non-default chunk, and the wrappers' refusal of a bad
+     ghost or an aliased output;
    - the face pack: the four packed faces x every dtype at 512^3 and at
      ragged shapes;
    - membw: every op a kernel serves x every dtype x aliased on/off x the
@@ -45,8 +50,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    3D ones with ``--pack kernel``, and for the box stencils (the chained
    exchange, one NCCL batch per axis) the block, stream and overlap arms
    of ``--points 9`` and the block and stream arms of ``--points 27``,
-   each dirichlet and periodic, plus one star and one ``--points 9``
-   ``--tol`` run whose residual goes through ``all_reduce``; temporal
+   and the wave arm of every stencil (the ghost-fed kernels in 1D and 2D,
+   the wavefront at t = 1 in 3D, the box waves; each launched once a
+   step), each dirichlet and periodic, plus two star (block, wave) and
+   one ``--points 9`` ``--tol`` run whose residual goes through
+   ``all_reduce``; temporal
    blocking: ``stencil --impl multi --t-steps 8 --iters 96`` for the 1D
    and 2D star and ``--points 9`` and ``--t-steps 4`` (dirichlet) for the
    3D star at full size (its kernel launched once a pass, and no other),
@@ -65,7 +73,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    its bound, and a circular convolution with the t-fold stencil as the
    library call (t = 4 for the 3D wavefront, also timed at t = 1, 2,
    8); for the mesh ``multi`` arm one pass divided by t beside the block
-   arm's step;
+   arm's step; the ghost-fed wave kernels with a convolution of the
+   ghost-padded block as the library call; the mesh wave arm's step of
+   every stencil beside its kernel and its exchange;
 6. the script's time, the ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, ...}`` line.
 
@@ -77,7 +87,8 @@ Full sizes: stencils 1D 2^26 points, 2D 8192^2, 3D 512^3 (the box
 stencils too); membw 2^26 elements. In float32 that is 256/256/512 MiB
 per buffer, far above the 50 MB L2, so the kernels stream DRAM; the mesh
 runs of phase 4 are at the same global sizes. Inputs are made on the card
-from fixed seeds.
+from fixed seeds. Phase 4's runs of one stencil share its NumPy golden
+(:func:`share_goldens`).
 """
 
 from __future__ import annotations
@@ -163,9 +174,27 @@ MESH_RUNS = [(1, "block", "fused"), (2, "block", "fused"),
              (3, "overlap", "kernel"), (3, "auto", "fused"),
              (9, "block", "fused"), (9, "stream", "fused"),
              (9, "overlap", "fused"), (27, "block", "fused"),
-             (27, "stream", "fused")]
+             (27, "stream", "fused"), (1, "wave", "fused"),
+             (2, "wave", "fused"), (3, "wave", "fused"),
+             (9, "wave", "fused"), (27, "wave", "fused")]
 #: the --tol mesh runs: (key, --impl)
-MESH_TOL_RUNS = [(2, "block"), (9, "block")]
+MESH_TOL_RUNS = [(2, "block"), (9, "block"), (2, "wave")]
+#: the ghost-fed wave kernels of the mesh wave arm (the 1D and 2D star):
+#: key -> (kernel, the TPU kernel body it replaces)
+GHOST_KERNELS = {
+    1: ("jacobi1d_wave_ghost", "tpu_comm/kernels/jacobi1d.py:674"),
+    2: ("jacobi2d_wave_ghost", "tpu_comm/kernels/jacobi2d.py:621"),
+}
+#: blocks the ghost-fed kernels take beyond RAGGED: one cell, one row, one
+#: column, two rows
+GHOST_TINY = {1: [(1,), (2,)], 2: [(1, 1), (1, 300), (300, 1), (2, 257)]}
+#: the kernel a mesh wave run launches, once a step: the ghost-fed kernels
+#: in 1D and 2D, the 3D wavefront at t = 1, the box waves
+MESH_WAVE_KERNELS = {1: "jacobi1d_wave_ghost", 2: "jacobi2d_wave_ghost",
+                     3: "jacobi3d_multi", 9: "stencil9_wave",
+                     27: "stencil27_wave"}
+#: a mesh run's timing loop: warmup and reps of the slope's two lengths
+MESH_WARMUP, MESH_REPS = 2, 5
 #: loop lengths of a mesh run (the eager face work makes a step long)
 MESH_ITERS = 20
 #: steps a mesh run's --verify holds against the NumPy golden on the host
@@ -384,6 +413,83 @@ def check_pack(torch) -> float:
     return worst
 
 
+def ghost_lines(torch, shape, dtype, seed: int) -> list:
+    """Random nonzero ghost lines, in [0.5, 1.5), of a block of ``shape``
+    (1D: lo, hi; 2D: up, down, left, right)."""
+    if len(shape) == 1:
+        shapes = [(1,), (1,)]
+    else:
+        ny, nx = shape
+        shapes = [(1, nx), (1, nx), (ny, 1), (ny, 1)]
+    return [(random_field(torch, s, torch.float32, seed + i) + 0.5).to(dtype)
+            for i, s in enumerate(shapes)]
+
+
+def check_ghost_kernels(torch, mods) -> dict:
+    """Phase 3, the ghost-fed wave kernels of the mesh wave arm: each
+    against its plain version, bitwise, over CHECK_STEPS chained steps with
+    fresh ghost lines every step, at full size, RAGGED and GHOST_TINY
+    shapes in every dtype; a non-default chunk must not move the result,
+    and a bad ghost must be refused. Returns the max abs error per key."""
+    errs = {}
+    for key, (name, _) in GHOST_KERNELS.items():
+        mod, dim = mods[key], DIM[key]
+        wrapper = mod.step_wave_ghost
+        full = (SIZES[dim],) * dim
+        cases = [full] + RAGGED[dim] + GHOST_TINY[dim]
+        worst = 0.0
+        for shape in cases:
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                u = random_field(torch, shape, dtype, seed=80 + dim)
+                got = want = u
+                for step in range(CHECK_STEPS):
+                    g = ghost_lines(torch, shape, dtype, seed=100 + 4 * step)
+                    got = wrapper(got, *g)
+                    want = mod.step_wave_ghost_plain(want, *g)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                worst = max(worst, err)
+                if not torch.equal(got, want) or got.dtype != dtype:
+                    fail(f"{name} {shape} {dtype}: kernel != plain "
+                         f"(max abs err {err})")
+                if shape == full:
+                    odd = wrapper(u, *g, rows_per_chunk=ODD_CHUNK[dim])
+                    if not torch.equal(odd, wrapper(u, *g)):
+                        fail(f"{name}: result depends on the chunk")
+                    del odd
+                del u, got, want, g
+        u = random_field(torch, RAGGED[dim][-1], torch.float32, seed=dim)
+        g = ghost_lines(torch, tuple(u.shape), torch.float32, seed=7)
+        before = wrapper.launches
+        for bad, why in (
+            ([g[0].new_zeros((2,) + tuple(g[0].shape[1:]))] + g[1:],
+             "ghost shape"),
+            ([g[0].double()] + g[1:], "ghost dtype"),
+            ([g[0].cpu()] + g[1:], "ghost device"),
+        ):
+            try:
+                wrapper(u, *bad)
+            except ValueError:
+                pass
+            else:
+                fail(f"{name} took a bad {why}")
+        try:
+            wrapper(u, *g, out=u)
+        except ValueError:
+            pass
+        else:
+            fail(f"{name} took an output that aliases its input")
+        if wrapper.launches != before:
+            fail(f"{name} launched on a refused call")
+        errs[key] = worst
+        emit({"check": {"kernel": name, "shapes": cases,
+                        "steps": CHECK_STEPS, "ghosts": "fresh each step",
+                        "max_abs_err": worst,
+                        "tolerance": "bitwise (torch.equal)",
+                        "elapsed_s": time.perf_counter() - T0}})
+    return errs
+
+
 def _stencil_argv(key: int) -> list:
     """``--dim`` (and ``--points`` for a box stencil) of a stencil key."""
     argv = ["--dim", str(DIM[key])]
@@ -395,6 +501,41 @@ def _workload(key: int) -> str:
 
     return f"stencil{DIM[key]}d" + (f"-{stencil_name(key)}" if key in BOX
                                     else "")
+
+
+#: the NumPy goldens phase 4 keeps (each of a 512^3 field holds 1 GiB of
+#: host memory: its input and its result)
+GOLDEN_CACHE = 8
+
+
+def share_goldens() -> None:
+    """One NumPy golden per (stencil, input field, bc, iterations): phase 4
+    holds many arms of a stencil against the same golden (one step of the
+    512^3 27-point golden takes seconds on the host), so the driver's
+    golden runs (``reference.GOLDEN_RUNS``) are wrapped to keep the last
+    GOLDEN_CACHE results and hand one back where the input field is equal
+    (``np.array_equal``) and the rest of the key the same. The driver's
+    check itself is unchanged."""
+    import numpy as np
+
+    from tpu_comm_torch.kernels import reference
+
+    kept = []  # (points, iters, bc, input, golden), the newest last
+
+    for points, run in list(reference.GOLDEN_RUNS.items()):
+        def shared(u0, iters, bc="dirichlet", _run=run, _points=points):
+            for i, (p, it, b, u, want) in enumerate(kept):
+                if ((p, it, b) == (_points, iters, bc)
+                        and u.shape == u0.shape and u.dtype == u0.dtype
+                        and np.array_equal(u, u0)):
+                    kept.append(kept.pop(i))
+                    return want
+            want = _run(u0, iters, bc=bc)
+            kept.append((_points, iters, bc, u0.copy(), want))
+            del kept[:-GOLDEN_CACHE]
+            return want
+
+        reference.GOLDEN_RUNS[points] = shared
 
 
 def drive_main_path(torch, counters) -> dict:
@@ -469,8 +610,9 @@ def drive_mesh(torch, counters) -> dict:
                     str(SIZES[dim]),
                     "--impl", impl, "--pack", pack, "--bc", bc, "--verify",
                     "--verify-iters", str(MESH_VERIFY_ITERS), "--iters",
-                    str(8 if tol else MESH_ITERS), "--warmup", "2",
-                    "--reps", "5", "--jsonl", str(path), *extra]
+                    str(8 if tol else MESH_ITERS), "--warmup",
+                    str(MESH_WARMUP), "--reps", str(MESH_REPS), "--jsonl",
+                    str(path), *extra]
             rc = cli.main(argv)
             counts = {k: w.launches for k, w in counters.items()}
             what = " ".join(argv[1:-2] + extra)
@@ -488,7 +630,9 @@ def drive_mesh(torch, counters) -> dict:
             if got != want:
                 fail(f"{what}: row says {got}, expected {want}")
             expected = set()
-            if arm in KERNELS:
+            if arm == "wave":
+                expected.add(MESH_WAVE_KERNELS[key])
+            elif arm in KERNELS:
                 expected.add(KERNELS[arm][key][0])
             if pack == "kernel":
                 expected.add(PACK_KERNEL[0])
@@ -496,6 +640,14 @@ def drive_mesh(torch, counters) -> dict:
             if launched != expected:
                 fail(f"{what} launched {sorted(launched)}, expected "
                      f"{sorted(expected)}: {counts}")
+            # the verify run's steps, then iters and 3 * iters a timed loop
+            steps = MESH_VERIFY_ITERS + (
+                (MESH_WARMUP + MESH_REPS) * 4 * MESH_ITERS)
+            if arm == "wave" and not tol and counts[
+                    MESH_WAVE_KERNELS[key]] != steps:
+                fail(f"{what}: {MESH_WAVE_KERNELS[key]} launched "
+                     f"{counts[MESH_WAVE_KERNELS[key]]} times, expected "
+                     f"{steps} (one a step)")
             for k in expected:
                 launches[k] += counts[k]
             emit({"main_path": {
@@ -652,6 +804,82 @@ def measure_pack(torch) -> dict:
     return out
 
 
+def measure_ghost(torch, mods) -> dict:
+    """Phase 5, the ghost-fed wave kernels at the full float32 sizes with
+    random ghost lines: kernel (also at other ring blocks), plain
+    version, copies of the same bytes, and one convolution of the
+    ghost-padded block (prebuilt) with the star's weights, TF32 off: the
+    same function, a yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    from tpu_comm_torch.kernels import membw
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for key, (name, _) in GHOST_KERNELS.items():
+        mod, dim = mods[key], DIM[key]
+        shape = (SIZES[dim],) * dim
+        u = random_field(torch, shape, torch.float32, seed=90 + key)
+        g = ghost_lines(torch, shape, torch.float32, seed=95)
+        dst = torch.empty_like(u)
+        n = u.numel()
+        kernel_ms = time_ms(torch, lambda: mod.step_wave_ghost(
+            u, *g, out=dst), 50)
+        plain_ms = time_ms(torch, lambda: mod.step_wave_ghost_plain(
+            u, *g, out=dst), 10)
+        chunk_sweep_ms = {
+            str(c): time_ms(torch, lambda: mod.step_wave_ghost(
+                u, *g, rows_per_chunk=c, out=dst), 50)
+            for c in CHUNK_SWEEP["wave"][key]}
+        copy_ms = time_ms(torch, lambda: dst.copy_(u), 50)
+        flat_u, flat_dst = u.reshape(-1), dst.reshape(-1)
+        chunked_copy_ms = time_ms(
+            torch, lambda: membw.step_chunked(flat_u, None, 1.0, "copy",
+                                              out=flat_dst), 50)
+        # the block padded with its ghost lines (2D: zero corners, which
+        # the star's weights never read)
+        if dim == 1:
+            padded = torch.cat([g[0], u, g[1]])
+            w = torch.tensor([0.5, 0.0, 0.5], device="cuda")
+            conv = F.conv1d
+        else:
+            padded = torch.zeros((shape[0] + 2, shape[1] + 2), device="cuda")
+            padded[1:-1, 1:-1] = u
+            padded[0, 1:-1], padded[-1, 1:-1] = g[0][0], g[1][0]
+            padded[1:-1, 0], padded[1:-1, -1] = g[2][:, 0], g[3][:, 0]
+            w = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
+                              [0.0, 0.25, 0.0]], device="cuda")
+            conv = F.conv2d
+        x = padded.reshape((1, 1) + padded.shape)
+        w = w.reshape((1, 1) + w.shape)
+        library_ms = time_ms(torch, lambda: conv(x, w), 10)
+        lib_err = float((conv(x, w).reshape(shape)
+                         - mod.step_wave_ghost_plain(u, *g)).abs().max())
+        ghost_elems = sum(t.numel() for t in g)
+        nbytes = (2 * n + ghost_elems) * u.element_size()
+        ops = OPS_PER_POINT[key] * n
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
+        out[key] = {
+            "kernel": name, "shape": list(shape), "dtype": "float32",
+            "kernel_ms": kernel_ms, "chunk_sweep_ms": chunk_sweep_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": f"torch.nn.functional.conv{dim}d of the "
+                            "ghost-padded block with the star's weights",
+            "library_max_abs_err": lib_err,
+            "copy_ms": copy_ms, "chunked_copy_ms": chunked_copy_ms,
+            "kernel_over_chunked_copy": kernel_ms / chunked_copy_ms,
+            "bytes": nbytes, "ops": ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        }
+        emit({"times": {**out[key], "elapsed_s": time.perf_counter() - T0}})
+        del u, g, dst, x, padded, flat_u, flat_dst
+        torch.cuda.empty_cache()
+    return out
+
+
 #: the distributed steps phase 5 times: (key, arm, --pack)
 DIST_STEPS = [(3, "block", "kernel"), (3, "block", "fused"),
               (3, "stream", "kernel"), (3, "overlap", "kernel"),
@@ -659,7 +887,28 @@ DIST_STEPS = [(3, "block", "kernel"), (3, "block", "fused"),
               (9, "block", "fused"), (9, "stream", "fused"),
               (9, "overlap", "fused"), (9, "multi", "fused"),
               (27, "block", "fused"), (27, "stream", "fused"),
-              (27, "overlap", "fused"), (27, "multi", "fused")]
+              (27, "overlap", "fused"), (27, "multi", "fused"),
+              (1, "wave", "fused"), (2, "wave", "fused"),
+              (3, "wave", "fused"), (9, "wave", "fused"),
+              (27, "wave", "fused")]
+
+
+def dist_kernel(torch, mods, key: int, impl: str, u, dst):
+    """The update kernel of a mesh arm's step alone, as a call on ``u``:
+    the block-periodic step (block, stream); for the wave arm the
+    ghost-fed kernel with random ghost lines (1D, 2D), the wavefront at
+    t = 1 (3D) or the box's wave; None for the arms without a kernel."""
+    mod = mods[key]
+    if impl == "wave":
+        if key in GHOST_KERNELS:
+            g = ghost_lines(torch, tuple(u.shape), u.dtype, seed=97)
+            return lambda: mod.step_wave_ghost(u, *g, out=dst)
+        if key == 3:
+            return lambda: mod.step_multi(u, "dirichlet", 1, out=dst)
+        return lambda: mod.step_wave(u, "dirichlet", out=dst)
+    if impl in KERNELS:
+        return lambda: mod.STEPS[impl](u, "periodic", out=dst)
+    return None
 
 
 def measure_dist_steps(torch, mods) -> list:
@@ -705,11 +954,9 @@ def measure_dist_steps(torch, mods) -> list:
                         start = halo.start_exchange_ghosts
                     exchange_ms = time_ms(
                         torch, lambda: start(u, cart).wait(), 20)
-                kernel_ms = None
-                if impl in KERNELS:
-                    kernel = mods[key].STEPS[impl]
-                    kernel_ms = time_ms(
-                        torch, lambda: kernel(u, "periodic", out=dst), 20)
+                kernel = dist_kernel(torch, mods, key, impl, u, dst)
+                kernel_ms = None if kernel is None else time_ms(
+                    torch, kernel, 20)
                 rows.append({"stencil": _workload(key), "impl": impl,
                              "pack": pack, "bc": bc, "shape": list(shape),
                              "dtype": "float32", "t_steps": t,
@@ -1194,17 +1441,22 @@ def main() -> int:
     counters.update({f"membw.{w.__name__}": w for w in membw.WRAPPERS})
     counters.update({MULTI_KERNELS[key][0]: mods[key].step_multi
                      for key in MULTI_KERNELS})
+    counters.update({name: mods[key].step_wave_ghost
+                     for key, (name, _) in GHOST_KERNELS.items()})
     errs = {arm: check_kernels(torch, mods, arm) for arm in KERNELS}
+    ghost_errs = check_ghost_kernels(torch, mods)
     multi_errs = check_multi(torch, mods)
     pack_err = check_pack(torch)
     membw_errs = check_membw(torch)
     check_stream_loads(libs)
+    share_goldens()
     launches = drive_main_path(torch, counters)
     multi_launches = drive_multi(torch, counters)
     membw_launches = drive_membw(torch, counters)
     mesh_launches = drive_mesh(torch, counters)
     times = {arm: measure_times(torch, mods, arm) for arm in KERNELS}
     multi_times = measure_multi(torch, mods)
+    ghost_times = measure_ghost(torch, mods)
     pack_times = measure_pack(torch)
     membw_times = measure_membw(torch)
     measure_dist_steps(torch, mods)
@@ -1229,11 +1481,24 @@ def main() -> int:
                 "chunked_copy_ms": t["chunked_copy_ms"],
                 "shape": t["shape"], "dtype": "float32",
             })
+    for key, (name, replaces) in GHOST_KERNELS.items():
+        t = ghost_times[key]
+        stencil_rows.append({
+            "name": name, "route": "cuda", "source": SOURCES["wave"],
+            "replaces": replaces, "launches": mesh_launches[name],
+            "max_abs_err": ghost_errs[key], "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "copy_ms": t["copy_ms"], "chunked_copy_ms": t["chunked_copy_ms"],
+            "shape": t["shape"], "dtype": "float32",
+        })
     for key, (name, replaces) in MULTI_KERNELS.items():
         t = multi_times[key]
         stencil_rows.append({
             "name": name, "route": "cuda", "source": MULTI_SOURCE,
-            "replaces": replaces, "launches": multi_launches[name],
+            "replaces": replaces,
+            # the single-device multi runs plus the 3D mesh wave runs
+            "launches": multi_launches[name] + mesh_launches[name],
             "max_abs_err": multi_errs[key], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -384,9 +384,8 @@ def test_torch_arm_runs_the_tol_mode(tmp_path):
       "periodic"], "wave supports bc='dirichlet' only"),
     (["--points", "9", "--dim", "2", "--impl", "grid"],
      "--impl grid not available for --points 9"),
-    (["--dim", "2", "--mesh", "2,2", "--impl", "wave"],
-     "--impl wave on a mesh (JAX's ghost-fed pallas-wave) is not yet "
-     "ported"),
+    (["--dim", "2", "--mesh", "2,2", "--impl", "wave", "--pack", "kernel"],
+     "pack='kernel' needs a 3D mesh and impl=overlap|block|stream"),
     (["--dim", "2", "--mesh", "2,2", "--impl", "grid"],
      "--impl grid is an arm of one device: drop --mesh"),
     (["--dim", "1", "--mesh", "2", "--impl", "stream2"],
@@ -399,6 +398,20 @@ def test_cli_refuses_what_the_arms_do_not_run(capsys, argv, message):
                    "2", *argv])
     assert rc == 2
     assert message in capsys.readouterr().err
+
+
+def test_cli_runs_the_wave_arm_on_a_mesh(tmp_path, capsys):
+    """``--mesh 2,2 --impl wave``, once refused with the cases above, runs
+    on 4 ranks, verifies, and its one row names the arm."""
+    path = tmp_path / "rows.jsonl"
+    rc = cli.main(["stencil", "--backend", "cpu", "--size", "16", "--iters",
+                   "2", "--dim", "2", "--mesh", "2,2", "--impl", "wave",
+                   "--verify", "--jsonl", str(path)])
+    assert rc == 0
+    row = json.loads(path.read_text())
+    assert (row["workload"], row["impl"], row["mesh"], row["verified"]) == (
+        "stencil2d-dist", "wave", [2, 2], True)
+    capsys.readouterr()
 
 
 def test_jax_refuses_the_same_arms():

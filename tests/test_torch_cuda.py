@@ -656,3 +656,113 @@ def test_multi3d_wrapper_counts_launches_and_checks_its_arguments(card):
     with pytest.raises(ValueError, match="threads"):
         jacobi3d.step_multi(u, rows_per_chunk=1000)
     assert jacobi3d.step_multi.launches == before + 4
+
+
+#: blocks of the ghost-fed wave kernels (the mesh wave arm's 1D and 2D
+#: update): one cell, one row, one column, ragged, several strips
+GHOST_SHAPES = {
+    1: [(1,), (2,), (1001,), (1000001,), (1 << 20,)],
+    2: [(1, 1), (1, 300), (300, 1), (37, 301), (1001, 37), (300, 1030)],
+}
+
+
+def _ghost_lines(shape, dtype, seed):
+    if len(shape) == 1:
+        shapes = [(1,), (1,)]
+    else:
+        shapes = [(1, shape[1]), (1, shape[1]), (shape[0], 1),
+                  (shape[0], 1)]
+    return [_field(s, dtype, seed + i) + 0.5 for i, s in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("dim", [1, 2])
+def test_wave_ghost_kernels_bitwise_equal_plain_version(card, dim, dtype):
+    """Five chained steps with fresh ghost lines each step."""
+    mod = MODS[dim]
+    for shape in GHOST_SHAPES[dim]:
+        got = want = _field(shape, dtype, seed=len(shape))
+        for step in range(5):
+            g = [x.to(dtype) for x in _ghost_lines(shape, torch.float32,
+                                                   10 * step)]
+            got = mod.step_wave_ghost(got, *g)
+            want = mod.step_wave_ghost_plain(want, *g)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want), shape
+
+
+@pytest.mark.parametrize("dim", [1, 2])
+def test_wave_ghost_chunk_sets_the_grid_not_the_result(card, dim):
+    mod = MODS[dim]
+    shape = GHOST_SHAPES[dim][-2]
+    u = _field(shape, torch.float32)
+    g = _ghost_lines(shape, torch.float32, 3)
+    ref = mod.step_wave_ghost(u, *g)
+    for chunk in (1, 2, 3, 7, 9, 16):
+        got = mod.step_wave_ghost(u, *g, rows_per_chunk=chunk)
+        assert torch.equal(got, ref), chunk
+
+
+@pytest.mark.parametrize("dim", [1, 2])
+def test_wave_ghost_takes_views_off_the_16_byte_grid(card, dim):
+    """The block and its ghost lines at addresses off the 16-byte grid."""
+    shape = (30001,) if dim == 1 else (200, 300)
+    n = 1
+    for s in shape:
+        n *= s
+    base = _field(n + 8, torch.float32)
+    u = base[3:3 + n].view(shape)
+    g = []
+    for i, line in enumerate(_ghost_lines(shape, torch.float32, 5)):
+        flat = _field(line.numel() + 4, torch.float32, seed=40 + i)
+        g.append(flat[1:1 + line.numel()].view(line.shape))
+    mod = MODS[dim]
+    assert torch.equal(mod.step_wave_ghost(u, *g),
+                       mod.step_wave_ghost_plain(u, *g))
+
+
+@pytest.mark.parametrize("dim", [1, 2])
+def test_wave_ghost_wrappers_count_launches_and_check_arguments(card, dim):
+    mod = MODS[dim]
+    shape = GHOST_SHAPES[dim][-2]
+    u = _field(shape, torch.float32)
+    g = _ghost_lines(shape, torch.float32, 7)
+    before = mod.step_wave_ghost.launches
+    out = torch.empty_like(u)
+    assert mod.step_wave_ghost(u, *g, out=out) is out
+    assert mod.step_wave_ghost.launches == before + 1
+    with pytest.raises(ValueError, match="alias"):
+        mod.step_wave_ghost(u, *g, out=u)
+    with pytest.raises(ValueError, match="ghost"):
+        mod.step_wave_ghost(u, g[0][..., :0], *g[1:])
+    with pytest.raises(ValueError, match="dtype and device"):
+        mod.step_wave_ghost(u, g[0].cpu(), *g[1:])
+    with pytest.raises(ValueError, match="shared memory"):
+        mod.step_wave_ghost(u, *g, rows_per_chunk=1 << 12)
+    assert mod.step_wave_ghost.launches == before + 1
+
+
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("dim,points", [(1, 0), (2, 0), (3, 0), (2, 9),
+                                        (3, 27)])
+def test_wave_mesh_of_one_on_the_card_through_nccl(card, dim, points, bc):
+    """The mesh ``wave`` arm at world size 1, ghosts through NCCL to the
+    own rank: the gathered field passes the golden, one launch of the
+    arm's kernel a step."""
+    from tpu_comm_torch.bench import stencil
+    from tpu_comm_torch.kernels import kernels_for
+
+    family = kernels_for(dim, points)
+    wrapper = (family.step_wave_ghost if dim < 3 and not points
+               else family.step_multi if dim == 3 and not points
+               else family.step_wave)
+    before = wrapper.launches
+    rec = stencil.run_distributed_bench(stencil.StencilConfig(
+        dim=dim, points=points, size=40, iters=3, bc=bc, impl="wave",
+        mesh=(1,) * dim, verify=True, verify_iters=4, warmup=1, reps=1,
+    ))
+    assert rec["platform"] == "cuda" and rec["verified"] is True
+    assert rec["impl"] == "wave"
+    # verify, then iters and 3 * iters a timed run
+    assert wrapper.launches - before == 4 + 2 * 4 * 3

@@ -21,15 +21,29 @@ t_steps=t)``, on the 4-rank spawn at t = 4, on the 8-rank spawn for the
 27-point box at t = 2 (a width-2 corner crosses three links), at world
 size 1, and through the driver.
 
+The ``wave`` arm runs for the star in 1D, 2D and 3D and for both boxes
+against JAX's ``run_distributed(impl="pallas-wave")``, each bc, on the
+4-rank spawn, on the 8-rank spawn (27-point), at world size 1 and
+through the driver.
+
 Contract: the gathered field is bitwise equal to JAX's for every arm x
-dim x bc, and for the box stencils every arm x bc, ``multi`` included,
-in float32 AND in bfloat16 (bound: 0 ulps per step; the arms round where
-JAX's do, since
+dim x bc, and for the box stencils every arm x bc, ``multi`` and
+``wave`` included, in float32 AND in bfloat16 (bound: 0 ulps per step;
+the arms round where JAX's do, since
 the face recompute, the ``torch`` and ``overlap`` arithmetic run in the
 field's dtype with ``1/(2d)``, 1/8 or 1/26 rounded to it, and the
 kernels' plain versions compute in float32 and narrow once, as the
 Pallas kernels do; the box kernels' global edge rows are recomputed
 with the faces, so JAX's field-dtype ``_edge_row`` leaves no trace).
+One exception, the 2D star's ``wave`` in bfloat16: JAX recomputes each
+block's two seam columns outside its kernel in the field's dtype (two
+levels of rounded adds, ROADMAP Trap 4), the port's kernel computes
+them in float32 and rounds once, within 2 ulps a step
+(``tests/test_torch_wave.py``). The gap spreads one column a step and a
+step adds at most 2 ulps to what it inherits (the step averages its
+inputs), so after ITERS steps the fields are held to 2 * ITERS ulps of
+the field's largest value, and bitwise at least ITERS columns from
+every block's seam columns.
 """
 
 import json
@@ -70,6 +84,8 @@ LAYOUTS = {
 #: the port's arm -> the JAX package's
 JAX_IMPL = {"torch": "lax", "overlap": "overlap", "block": "pallas",
             "stream": "pallas-stream"}
+#: the driver tests' arms: those and the wave
+DRIVER_IMPL = {**JAX_IMPL, "wave": "pallas-wave"}
 #: the JAX stream arm's chunk on these local blocks
 JAX_STREAM_CHUNK = {1: {"rows_per_chunk": 8}, 2: {"rows_per_chunk": 8},
                     3: {"planes_per_chunk": 2}}
@@ -101,6 +117,16 @@ BOX_CONV = {
     ("27pt", "block", "periodic"): {"tol": 0.05, "max_iters": 60,
                                     "check_every": 3},
 }
+#: the wave arm's runs on the 4-rank spawn: (stencil of MULTI_LAYOUTS,
+#: bc, dtype)
+WAVE_RUNS = [
+    (stencil, bc, dtype)
+    for stencil in ("star1", "star2", "star3", "9pt", "27pt")
+    for bc in ("dirichlet", "periodic")
+    for dtype in ("float32", "bfloat16")
+]
+#: a bfloat16 value in [2^e, 2^(e+1)) has ulp 2^(e - 7)
+BF16_ULP_EXP = 7
 #: the 8-rank spawn: a 27-point field over mesh (2, 2, 2)
 CORNER_GSHAPE, CORNER_MESH = (8, 16, 256), (2, 2, 2)
 #: the multi arm's steps per exchange on the 4-rank spawn (the 3D local
@@ -157,6 +183,29 @@ def _jax_run(u0, mesh, iters, bc, impl, dtype="float32", pack="fused"):
     return np.asarray(dec.gather(out).astype(np.float32))
 
 
+def _jax_wave_run(u0, mesh, iters, bc, stencil, dtype="float32"):
+    """JAX's ``pallas-wave`` on a mesh (its kernels pick their own ring
+    blocks)."""
+    dec, u = _jax_setup(u0, mesh, bc, dtype)
+    out = jdist.run_distributed(u, dec, iters, bc, "pallas-wave",
+                                stencil=stencil, interpret=True)
+    return np.asarray(dec.gather(out).astype(np.float32))
+
+
+def assert_wave_equals_jax(got, want, stencil, dtype, local_nx, iters):
+    """The module docstring's contract for the ``wave`` arm: bitwise, but
+    for the 2D star in bfloat16, within 2 ulps a step of the largest value
+    and bitwise ``iters`` columns or more from every block's seams."""
+    if stencil != "star2" or dtype == "float32":
+        np.testing.assert_array_equal(got, want)
+        return
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - BF16_ULP_EXP)
+    assert np.abs(got - want).max() <= 2 * iters * ulp
+    col = np.arange(want.shape[1]) % local_nx
+    far = np.minimum(col, local_nx - 1 - col) >= iters
+    np.testing.assert_array_equal(got[:, far], want[:, far])
+
+
 def _jax_box_run(u0, mesh, iters, bc, impl, stencil, dtype="float32"):
     """JAX's box path (its stream arm picks its own chunk: it takes no
     chunk argument there)."""
@@ -206,6 +255,13 @@ def ranks():
             "dtype": dtype, "stencil": _multi_stencil(name),
             "t_steps": MULTI_T,
         })
+    for name, bc, dtype in WAVE_RUNS:
+        gshape, mesh = MULTI_LAYOUTS[name]
+        todo["wave", name, bc, dtype] = ("run", {
+            "u0": cases.field(gshape, 140 + len(gshape)), "mesh": mesh,
+            "iters": ITERS, "bc": bc, "impl": "wave", "dtype": dtype,
+            "stencil": _multi_stencil(name),
+        })
     todo["verdict"] = ("verdict", {})
     common = dict(dim=2, size=64, iters=4, mesh=(2, 2), backend="cpu",
                   warmup=1, reps=5, verify=True, verify_iters=3)
@@ -215,6 +271,8 @@ def ranks():
     todo["bench-9pt"] = ("bench", {**common, "impl": "auto", "points": 9})
     todo["bench-multi"] = ("bench", {**common, "impl": "multi",
                                      "t_steps": 2})
+    todo["bench-wave"] = ("bench", {**common, "impl": "wave",
+                                    "bc": "periodic"})
     # one thread per rank: four ranks run beside the other test workers
     with pytest.MonkeyPatch.context() as env:
         env.setenv("OMP_NUM_THREADS", "1")
@@ -299,6 +357,20 @@ def test_multi_mesh_run_equals_jax_bitwise(ranks, name, bc, dtype):
     np.testing.assert_array_equal(got[0], want)
 
 
+@pytest.mark.parametrize("name,bc,dtype", WAVE_RUNS)
+def test_wave_mesh_run_equals_jax(ranks, name, bc, dtype):
+    """``wave`` on 4 ranks against JAX's ``pallas-wave``, every stencil:
+    ITERS steps, the module docstring's contract."""
+    gshape, mesh = MULTI_LAYOUTS[name]
+    u0 = cases.field(gshape, 140 + len(gshape))
+    want = _jax_wave_run(u0, mesh, ITERS, bc, _multi_stencil(name), dtype)
+    got = ranks["wave", name, bc, dtype]
+    assert all(g is None for g in got[1:])
+    assert got[0].dtype == np.float32 and got[0].shape == gshape
+    assert_wave_equals_jax(got[0], want, name, dtype,
+                           gshape[-1] // mesh[-1], ITERS)
+
+
 @pytest.mark.parametrize("stencil,impl,bc", list(BOX_CONV))
 def test_box_convergence_loop_stops_where_jax_stops(ranks, stencil, impl,
                                                     bc):
@@ -341,6 +413,12 @@ def ranks8():
         })
     todo["pad2"] = ("pad_halo", {"u0": u0, "mesh": CORNER_MESH,
                                  "bc": "periodic", "width": 2})
+    for bc in ("dirichlet", "periodic"):
+        for dtype in ("float32", "bfloat16"):
+            todo["wave", bc, dtype] = ("run", {
+                "u0": u0, "mesh": CORNER_MESH, "iters": ITERS, "bc": bc,
+                "impl": "wave", "stencil": "27pt", "dtype": dtype,
+            })
     with pytest.MonkeyPatch.context() as env:
         env.setenv("OMP_NUM_THREADS", "1")
         return launch.run_ranks(cases.run_cases, 8, "gloo", (todo,),
@@ -364,6 +442,18 @@ def test_27pt_multi_on_8_ranks_equals_jax_bitwise(ranks8, bc):
     u0 = cases.field(CORNER_GSHAPE, 80)
     want = _jax_multi_run(u0, CORNER_MESH, 4, bc, "27pt", 2)
     got = ranks8["multi", bc]
+    assert all(g is None for g in got[1:])
+    np.testing.assert_array_equal(got[0], want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+def test_27pt_wave_on_8_ranks_equals_jax_bitwise(ranks8, bc, dtype):
+    """The 27-point wave kernel's faces recomputed from ghosts that cross
+    three links at a corner."""
+    u0 = cases.field(CORNER_GSHAPE, 80)
+    want = _jax_wave_run(u0, CORNER_MESH, ITERS, bc, "27pt", dtype)
+    got = ranks8["wave", bc, dtype]
     assert all(g is None for g in got[1:])
     np.testing.assert_array_equal(got[0], want)
 
@@ -405,6 +495,30 @@ def test_box_world_of_one_equals_jax_bitwise(stencil, bc, impl):
     got = pdist.run_distributed(dec.scatter(u0), dec, ITERS, bc=bc,
                                 impl=impl, stencil=stencil)
     np.testing.assert_array_equal(dec.gather(got), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("name", list(MULTI_LAYOUTS))
+def test_wave_world_of_one_equals_jax(name, bc, dtype):
+    """``wave`` on a mesh of one rank (what a single card runs): the
+    ghosts are the own opposite edges; the module docstring's
+    contract."""
+    gshape = {"star1": (1024,), "star2": (8, 128), "star3": (4, 8, 128),
+              "9pt": (8, 128), "27pt": (4, 8, 128)}[name]
+    u0 = cases.field(gshape, 150)
+    want = _jax_wave_run(u0, (1,) * len(gshape), ITERS, bc,
+                         _multi_stencil(name), dtype)
+    dec = Decomposition(
+        make_cart_mesh(len(gshape), periodic=bc == "periodic"), gshape
+    )
+    block = dec.scatter(u0, "cpu", DTYPES[dtype])
+    keep = block.clone()
+    got = pdist.run_distributed(block, dec, ITERS, bc=bc, impl="wave",
+                                stencil=_multi_stencil(name))
+    assert_wave_equals_jax(dec.gather(got), want, name, dtype,
+                           gshape[-1], ITERS)
+    assert (block == keep).all()  # the input block is only read
 
 
 @pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
@@ -503,12 +617,31 @@ def test_rows_pass_the_jax_row_schema(ranks):
         "stencil2d-dist", "multi", 2)
 
 
+def test_wave_row_passes_the_jax_row_schema(ranks):
+    """A ``--mesh 2,2 --impl wave`` row: JAX's identity fields, no chunk
+    (the kernels choose their own on a mesh), the width-1 halo model."""
+    per_rank = ranks["bench-wave"]
+    assert all(r is None for r in per_rank[1:])
+    row = per_rank[0]
+    errors, warnings = validate_row(json.loads(emit_jsonl(row)))
+    assert errors == [] and warnings == []
+    assert (row["workload"], row["impl"], row["bc"], row["mesh"],
+            row["local_size"], row["pack"], row["verified"]) == (
+        "stencil2d-dist", "wave", "periodic", [2, 2], [32, 32], "fused",
+        True)
+    assert "chunk" not in row
+    assert row["halo_bytes_per_chip_per_iter"] == 2 * 2 * 32 * 4
+
+
 DRIVER = [
     (1, 4096, (4,), "block", "fused", "dirichlet"),
     (2, 256, (2, 2), "torch", "fused", "periodic"),
     (2, 256, (2, 2), "overlap", "fused", "dirichlet"),
     (3, 128, (2, 2, 1), "block", "kernel", "periodic"),
     (3, 128, (2, 2, 1), "stream", "fused", "dirichlet"),
+    (1, 4096, (4,), "wave", "fused", "periodic"),
+    (2, 256, (2, 2), "wave", "fused", "dirichlet"),
+    (3, 128, (2, 2, 1), "wave", "fused", "periodic"),
 ]
 
 
@@ -522,7 +655,7 @@ def test_driver_dump_equals_jax_driver(tmp_path, dim, size, mesh, impl, pack,
     common = dict(dim=dim, size=size, iters=2, bc=bc, mesh=mesh,
                   load=str(load), warmup=1, reps=1)
     jstencil.run_distributed_bench(jstencil.StencilConfig(
-        impl=JAX_IMPL[impl], backend="cpu-sim",
+        impl=DRIVER_IMPL[impl], backend="cpu-sim",
         pack={"fused": "fused", "kernel": "pallas"}[pack],
         dump=str(tmp_path / "a.npy"), **common,
     ))
@@ -671,11 +804,18 @@ def test_cli_joins_the_group_a_launcher_gives_it(tmp_path):
       "partitioned"], "not yet ported; see ROADMAP.md"),
     (["--dim", "2", "--size", "64", "--mesh", "4"], "has 1 axes, --dim is 2"),
     (["--dim", "2", "--size", "64", "--mesh", "2,0"], "positive sizes"),
-    (["--dim", "2", "--size", "64", "--mesh", "2,2", "--impl", "wave"],
-     "--impl wave on a mesh (JAX's ghost-fed pallas-wave) is not yet "
-     "ported"),
+    (["--dim", "3", "--size", "16", "--mesh", "2,2,1", "--impl", "wave",
+      "--chunk", "4"], "--chunk is a single-device tuning knob"),
     (["--dim", "3", "--size", "16", "--pack", "kernel"],
      "--pack applies to a 3D mesh run"),
+    (["--points", "9", "--dim", "2", "--size", "64", "--mesh", "2,2",
+      "--impl", "wave", "--chunk", "8"],
+     "--chunk is a single-device tuning knob"),
+    (["--dim", "3", "--size", "16", "--mesh", "2,2,1", "--impl", "wave",
+      "--pack", "kernel"], "pack='kernel' needs a 3D mesh and "
+     "impl=overlap|block|stream"),
+    (["--dim", "2", "--size", "64", "--mesh", "2,2", "--impl", "wave",
+      "--chunk", "8"], "--chunk is a single-device tuning knob"),
 ])
 def test_cli_refuses_bad_mesh_runs_before_it_starts_a_rank(capsys, argv,
                                                            message):
@@ -715,6 +855,8 @@ def test_library_refuses_what_jax_refuses():
 @pytest.mark.parametrize("points,size,mesh,impl,bc", [
     (9, 256, (2, 2), "block", "periodic"),
     (27, 128, (2, 2, 1), "stream", "dirichlet"),
+    (9, 256, (2, 2), "wave", "periodic"),
+    (27, 128, (2, 2, 1), "wave", "dirichlet"),
 ])
 def test_box_driver_dump_equals_jax_driver(tmp_path, points, size, mesh,
                                            impl, bc):
@@ -726,7 +868,7 @@ def test_box_driver_dump_equals_jax_driver(tmp_path, points, size, mesh,
     common = dict(dim=dim, points=points, size=size, iters=2, bc=bc,
                   mesh=mesh, load=str(load), warmup=1, reps=1)
     jstencil.run_distributed_bench(jstencil.StencilConfig(
-        impl=JAX_IMPL[impl], backend="cpu-sim",
+        impl=DRIVER_IMPL[impl], backend="cpu-sim",
         dump=str(tmp_path / "a.npy"), **common,
     ))
     rec = pstencil.run_distributed_bench(pstencil.StencilConfig(
@@ -752,9 +894,10 @@ def test_box_library_refuses_what_jax_refuses():
     assert str(port.value) == str(ref.value)
     for cart, impl, kwargs, message in [
         (cart2, "overlap", {"stencil": "5pt"}, "unknown stencil '5pt'"),
-        (cart2, "wave", {"stencil": "9pt"}, "impl 'wave' is "
-         "not yet ported for stencil='9pt'"),
-        (cart3, "wave", {"stencil": "27pt"}, "not yet ported"),
+        (cart2, "wave", {"stencil": "9pt", "rows_per_chunk": 8},
+         "unknown kwargs for stencil='9pt' impl='wave'"),
+        (cart3, "wave", {"stencil": "27pt", "pack": "kernel"},
+         "pack='kernel' needs a 3D mesh and impl="),
         (cart3, "partitioned", {"stencil": "27pt"},
          "stencil='27pt' supports impl='torch'|'overlap'|'block'|'stream'"),
         (cart3, "block", {"stencil": "27pt", "pack": "kernel"},
@@ -764,6 +907,31 @@ def test_box_library_refuses_what_jax_refuses():
     ]:
         with pytest.raises(ValueError, match=message):
             pdist.make_local_step(cart, "dirichlet", impl, **kwargs)
+
+
+def test_wave_library_refuses_what_jax_refuses():
+    """JAX's messages where both have the case: ``rows_per_chunk`` on the
+    3D wave, unknown options; the box wave takes no ``rows_per_chunk``."""
+    cart3 = make_cart_mesh(3, shape=(2, 2, 2), world=8, rank=0)
+    jcart3 = jmake_cart_mesh(3, backend="cpu-sim", shape=(2, 2, 2))
+    cart2 = make_cart_mesh(2, shape=(2, 2), world=4, rank=0)
+    jcart2 = jmake_cart_mesh(2, backend="cpu-sim", shape=(2, 2))
+    for (cart, jcart), kwargs in [
+        ((cart3, jcart3), {"rows_per_chunk": 8}),
+        ((cart3, jcart3), {"stencil": "27pt", "rows_per_chunk": 8}),
+        ((cart2, jcart2), {"stencil": "9pt", "rows_per_chunk": 8}),
+    ]:
+        with pytest.raises(ValueError) as port:
+            pdist.make_local_step(cart, "dirichlet", "wave", **kwargs)
+        with pytest.raises(ValueError) as ref:
+            jdist.make_local_step(jcart, "dirichlet", "pallas-wave",
+                                  **kwargs)
+        assert str(port.value) == str(ref.value).replace(
+            "pallas-wave", "wave")
+    with pytest.raises(ValueError, match="unknown kwargs for impl='wave'"):
+        pdist.make_local_step(cart2, "dirichlet", "wave", bogus=1)
+    # the 1D and 2D star take it: their ghost-fed kernel's ring blocks
+    pdist.make_local_step(cart2, "dirichlet", "wave", rows_per_chunk=8)
 
 
 def test_box_stencils_from_padded_equal_jax():

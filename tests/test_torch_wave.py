@@ -1,10 +1,12 @@
-"""The rest of the Trap-1 family on one device held against the JAX
-package, on the CPU: the 9-point and 27-point ``wave`` arms against
-``pallas-wave`` and the 3D ``multi`` arm (the wavefront) against
-``pallas-multi`` (Pallas in interpret mode, as the JAX package's own tests
-run them; the port's wrappers run their plain versions on a CPU tensor),
-then against the NumPy golden, ragged shapes, the driver, its rows, the
-CLI and the refusals.
+"""The rest of the Trap-1 family held against the JAX package, on the
+CPU: the 9-point and 27-point ``wave`` arms against ``pallas-wave`` and
+the 3D ``multi`` arm (the wavefront) against ``pallas-multi`` (Pallas in
+interpret mode, as the JAX package's own tests run them; the port's
+wrappers run their plain versions on a CPU tensor), then against the
+NumPy golden, ragged shapes, the driver, its rows, the CLI and the
+refusals; and the ghost-fed wave steps of the mesh ``wave`` arm
+(``jacobi1d``/``jacobi2d.step_wave_ghost``) against JAX's
+``step_pallas_wave_ghost``.
 
 Inputs are seeded NumPy fields, the same values to both packages.
 Tolerances:
@@ -22,6 +24,18 @@ Tolerances:
   even, so within half an ulp, at most 2^-8 (bfloat16) or 2^-11 (float16)
   of max|golden|. For t >= 2 that is no looser than JAX's own bfloat16
   envelope, 2^-9 * iters * scale (``tests/test_multistep.py``).
+- the 1D ghost-fed step against JAX's ``step_pallas_wave_ghost``:
+  bitwise in every dtype (both compute in float32 from the ghost cells
+  and narrow once).
+- the 2D ghost-fed step against JAX's local update, its kernel
+  (``step_pallas_wave_ghost``) and its seam-column recompute: bitwise in
+  float32 (the same association, ``((up + down) + (left + right)) *
+  0.25``). In bfloat16 and float16 bitwise off the two seam columns; on
+  them JAX adds in the field's dtype (two levels of rounded adds, each
+  level off by at most half an ulp of each partial sum, together at most
+  1 ulp of the total per level for non-negative values, then an exact
+  multiply by 1/4) against the port's one rounding of the float32 sum:
+  at most 2 ulps of the result.
 """
 
 import json
@@ -43,6 +57,8 @@ from tpu_comm.kernels import stencil9 as j9
 from tpu_comm.kernels import stencil27 as j27
 from tpu_comm_torch import cli
 from tpu_comm_torch.bench import stencil as pstencil
+from tpu_comm_torch.kernels import jacobi1d as p1
+from tpu_comm_torch.kernels import jacobi2d as p2
 from tpu_comm_torch.kernels import jacobi3d as p3
 from tpu_comm_torch.kernels import kernels_for
 from tpu_comm_torch.kernels import reference as pref
@@ -82,6 +98,12 @@ def _port_bits(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16).astype(np.int64)
     return _bits(t.numpy())
+
+
+def _ulp(a: np.ndarray, dtype: str) -> np.ndarray:
+    """The ulp of each value of ``a`` in ``dtype`` (normal range)."""
+    bits = {"bfloat16": 7, "float16": 10}[dtype]
+    return 2.0 ** (np.floor(np.log2(np.abs(a))) - bits)
 
 
 def _both(u_np, dtype):
@@ -404,3 +426,123 @@ def test_jax_driver_refuses_the_same(cfg, message):
         jstencil.run_single_device(jstencil.StencilConfig(
             size=128, backend="cpu-sim", **cfg))
     assert message in str(err.value)
+
+
+#: the ghost-fed steps: shapes the TPU kernels take, and ragged ones
+GHOST_SHAPES = {1: (2048,), 2: (32, 256)}
+GHOST_RAGGED = {1: [(1,), (2,), (3,), (1001,)],
+                2: [(1, 1), (3, 3), (37, 45), (5, 257), (2, 1)]}
+
+
+def _ghosts(shape, dtype, seed):
+    """Random nonzero ghost lines of a block of ``shape``, both packages'
+    (1D: lo, hi; 2D: up, down, left, right)."""
+    rng = np.random.default_rng(seed)
+    if len(shape) == 1:
+        shapes = [(1,), (1,)]
+    else:
+        ny, nx = shape
+        shapes = [(1, nx), (1, nx), (ny, 1), (ny, 1)]
+    return [_both((rng.random(s) + 0.5).astype(np.float32), dtype)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_wave_ghost_1d_equals_jax_pallas_wave_ghost(chunk, dtype):
+    uj, ut = _both(_field(GHOST_SHAPES[1], seed=chunk), dtype)
+    (loj, lot), (hij, hit) = _ghosts(GHOST_SHAPES[1], dtype, chunk)
+    from tpu_comm.kernels import jacobi1d as j1
+
+    want = _bits(np.asarray(j1.step_pallas_wave_ghost(
+        uj, loj, hij, rows_per_chunk=chunk, interpret=True)))
+    keep = ut.clone()
+    before = p1.step_wave_ghost.launches
+    got = p1.step_wave_ghost(ut, lot, hit, rows_per_chunk=chunk)
+    assert got.dtype == ut.dtype and torch.equal(ut, keep)
+    assert p1.step_wave_ghost.launches == before  # the plain version ran
+    np.testing.assert_array_equal(_port_bits(got), want)
+    np.testing.assert_array_equal(
+        _port_bits(p1.step_wave_ghost_plain(ut, lot, hit)), want)
+
+
+def _jax_wave_ghost_2d(uj, upj, dnj, lej, rij, chunk):
+    """JAX's 2D mesh ``pallas-wave`` update without its freeze: the
+    ghost-fed kernel, then the two seam columns recomputed in the field's
+    dtype (``tpu_comm/kernels/distributed.py`` ``make_local_step``)."""
+    from tpu_comm.kernels import jacobi2d as j2
+
+    new = j2.step_pallas_wave_ghost(uj, upj, dnj, rows_per_chunk=chunk,
+                                    interpret=True)
+    nx = uj.shape[1]
+    quarter = jnp.asarray(0.25, dtype=uj.dtype)
+
+    def vcol(c):
+        up_c = jnp.concatenate([upj[:, c:c + 1], uj[:-1, c:c + 1]], axis=0)
+        dn_c = jnp.concatenate([uj[1:, c:c + 1], dnj[:, c:c + 1]], axis=0)
+        return up_c + dn_c
+
+    col0 = (vcol(0) + (lej + uj[:, 1:2])) * quarter
+    coln = (vcol(nx - 1) + (uj[:, nx - 2:nx - 1] + rij)) * quarter
+    return jnp.concatenate([col0, new[:, 1:-1], coln], axis=1)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_wave_ghost_2d_equals_jax_local_update(chunk, dtype):
+    """The module docstring's bound: bitwise in float32, and off the seam
+    columns in every dtype; within 2 ulps on them."""
+    uj, ut = _both(_field(GHOST_SHAPES[2], seed=chunk), dtype)
+    ghosts = _ghosts(GHOST_SHAPES[2], dtype, chunk)
+    want = np.asarray(_jax_wave_ghost_2d(
+        uj, *(g for g, _ in ghosts), chunk).astype(jnp.float32))
+    keep = ut.clone()
+    before = p2.step_wave_ghost.launches
+    got = p2.step_wave_ghost(ut, *(g for _, g in ghosts),
+                             rows_per_chunk=chunk)
+    assert got.dtype == ut.dtype and torch.equal(ut, keep)
+    assert p2.step_wave_ghost.launches == before
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+        return
+    np.testing.assert_array_equal(got[:, 1:-1], want[:, 1:-1])
+    seams = np.stack([got[:, [0, -1]], want[:, [0, -1]]])
+    err = np.abs(seams[0] - seams[1])
+    assert (err <= 2 * _ulp(seams.max(axis=0), dtype)).all()
+
+
+@pytest.mark.parametrize("dim", [1, 2])
+def test_wave_ghost_of_the_own_edges_is_the_periodic_step(dim):
+    """A block whose ghosts are its own opposite edges (a periodic mesh of
+    one rank) steps as the golden's periodic step, bitwise in float32, at
+    the TPU kernels' shapes and at ragged ones."""
+    for shape in [GHOST_SHAPES[dim]] + GHOST_RAGGED[dim]:
+        u = _field(shape, seed=sum(shape))
+        ut = torch.from_numpy(u)
+        if dim == 1:
+            got = p1.step_wave_ghost(ut, ut[-1:], ut[:1])
+        else:
+            got = p2.step_wave_ghost(ut, ut[-1:], ut[:1], ut[:, -1:],
+                                     ut[:, :1])
+        want = pref.GOLDEN_RUNS[0](u, 1, bc="periodic")
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("dim", [1, 2])
+def test_wave_ghost_refuses_bad_ghosts_and_never_falls_back(dim):
+    mod = {1: p1, 2: p2}[dim]
+    shape = GHOST_SHAPES[dim]
+    u = torch.from_numpy(_field(shape))
+    ghosts = [g for _, g in _ghosts(shape, "float32", 3)]
+    bad = [torch.zeros(2) if dim == 1 else torch.zeros(2, shape[1])]
+    with pytest.raises(ValueError, match="ghost (cells|lines)"):
+        mod.step_wave_ghost(u, *(bad + ghosts[1:]))
+    with pytest.raises(ValueError, match="dtype and device"):
+        mod.step_wave_ghost(u, *([ghosts[0].double()] + ghosts[1:]))
+    with pytest.raises(ValueError, match="must not alias"):
+        mod.step_wave_ghost(u, *ghosts, out=u)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mod.step_wave_ghost(u.to("meta"), *(g.to("meta") for g in ghosts))
+    out = torch.empty_like(u)
+    assert mod.step_wave_ghost(u, *ghosts, out=out) is out

@@ -28,7 +28,8 @@ name: it names no Pallas kernel):
     pallas-grid    grid     csrc/grid.cu, a window a CTA (1D, 2D, one
                             device)
     pallas-wave    wave     csrc/wave.cu, ring-buffered block streams
-                            (1D, 2D, one device; dirichlet)
+                            (mesh and one device; mesh: every bc, one
+                            device: dirichlet)
     pallas-multi   multi    csrc/multi.cu, t steps a pass (one device)
     multi          multi    width-t ghosts, t steps an exchange (mesh)
     --pack fused  fused     slice copies of the faces

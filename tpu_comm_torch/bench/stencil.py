@@ -57,7 +57,7 @@ from tpu_comm_torch.kernels.tiling import (
 #: default global points per dimension (the JAX driver's defaults)
 DEFAULT_SIZES = {1: 1 << 20, 2: 4096, 3: 256}
 #: the arms of a mesh run; ``auto`` resolves to ``overlap``
-DIST_IMPLS = ("torch", "overlap", "block", "stream", "multi")
+DIST_IMPLS = ("torch", "overlap", "block", "stream", "multi", "wave")
 #: the JAX driver's other arm, refused until a later slice ports it
 UNPORTED_IMPLS = ("partitioned",)
 #: the 3D arms that take no ``--chunk`` (the JAX driver's reason: they
@@ -149,11 +149,6 @@ def resolve_impl(impl: str, distributed: bool = False, dim: int = 1,
     if distributed:
         if impl in DIST_IMPLS:
             return impl
-        if impl == "wave":
-            raise ValueError(
-                "--impl wave on a mesh (JAX's ghost-fed pallas-wave) is not "
-                "yet ported; see ROADMAP.md"
-            )
         if impl in CHUNK_DEFAULTS:
             raise ValueError(
                 f"--impl {impl} is an arm of one device: drop --mesh (a "

@@ -232,7 +232,7 @@ def build_parser() -> argparse.ArgumentParser:
         "neighbors). On a mesh, the workloads that consume the transitive "
         "corner ghosts. Arms: 'stream', 'block', 'wave' and 'torch' on "
         "one device, and 'multi' for --points 9; 'torch', 'overlap', "
-        "'block', 'stream' and 'multi' on a mesh",
+        "'block', 'stream', 'multi' and 'wave' on a mesh",
     )
     p_st.add_argument(
         "--impl", default="auto",
@@ -249,10 +249,12 @@ def build_parser() -> argparse.ArgumentParser:
         "only; JAX 'pallas-multi'). With --mesh "
         "'block', 'stream', 'torch' (plain PyTorch on the ghost-padded "
         "block), 'overlap' (interior/boundary split in plain PyTorch; what "
-        "'auto' picks there) and 'multi' (one width-t ghost exchange, then "
-        "t steps in plain PyTorch). On the CPU a kernel arm runs its plain "
-        "PyTorch version. The JAX package's other arms are not yet ported "
-        "(see ROADMAP.md)",
+        "'auto' picks there), 'multi' (one width-t ghost exchange, then "
+        "t steps in plain PyTorch) and 'wave' (every stencil and bc: 1D "
+        "and 2D the ghost-fed wave kernel after the exchange, 3D the "
+        "wavefront at t = 1 and the boxes their wave kernels during it). "
+        "On the CPU a kernel arm runs its plain PyTorch version. The JAX "
+        "package's other arms are not yet ported (see ROADMAP.md)",
     )
     p_st.add_argument(
         "--verify", action="store_true",

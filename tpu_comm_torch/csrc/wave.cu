@@ -5,7 +5,14 @@
 //   tpu_comm/kernels/jacobi2d.py _jacobi2d_wave_kernel (step_pallas_wave)
 //   tpu_comm/kernels/stencil9.py _stencil9_wave_kernel (step_pallas_wave)
 //   tpu_comm/kernels/stencil27.py _stencil27_wave_kernel (step_pallas_wave)
-// Dirichlet only, as the TPU arm: the launchers refuse periodic.
+// Dirichlet only, as the TPU arm: the launchers refuse periodic. And the
+// ghost-fed forms of the 1D and 2D star, the mesh arm's local update
+//   tpu_comm/kernels/jacobi1d.py _jacobi1d_wave_ghost_kernel
+//                                (step_pallas_wave_ghost)
+//   tpu_comm/kernels/jacobi2d.py _jacobi2d_wave_ghost_kernel
+//                                (step_pallas_wave_ghost)
+// which take a rank's block and its exchanged ghost cells and freeze
+// nothing: the caller applies the boundary condition.
 //
 // Built by tpu_comm_torch/kernels/_build.py with
 //   nvcc -O3 -gencode=arch=compute_90a,code=sm_90a -fmad=false -shared
@@ -23,9 +30,10 @@
 //   27-point  ((full9(z-1) + full9(z+1)) + box8(z)) * (float)(1.0 / 26.0),
 //             full9(p) = box8(p) + p (csrc/box.cu's association)
 // is narrowed once, round-to-nearest-even; a cell on the boundary ring
-// keeps its input value. __fadd_rn/__fmul_rn are never contracted into an
-// FMA, and -fmad=false guards the rest, so f32 results are bitwise equal
-// to the golden.
+// keeps its input value (the ghost-fed forms: the neighbours past the
+// block's edges are its ghost cells, and every cell is computed).
+// __fadd_rn/__fmul_rn are never contracted into an FMA, and -fmad=false
+// guards the rest, so f32 results are bitwise equal to the golden.
 //
 // Design. The TPU kernel runs its grid in order on one core: at grid step
 // k it receives block k while it advances block k - 1 from a two-block f32
@@ -49,6 +57,15 @@
 //     only real data: nothing is junk, so no freeze is needed to mask a
 //     warmup, and the arm stays dirichlet only because the TPU arm is;
 //   - in 2D the strip's two halo columns ride in every staged row.
+// The ghost-fed forms change where a range's outer halo comes from when
+// the range touches the block's end: from the ghost tensors instead of
+// the field, and in 2D the strips at the block's sides read their outer
+// column from the ghost columns (the TPU kernel's grid order, where the
+// warmup step writes junk into out block 0 and the next step writes it
+// again, has no counterpart: nothing is written twice). The ghost tensors
+// are device memory that the exchange has just written on the
+// communication stream; the kernel runs on the stream that the exchange's
+// wait has ordered after it, and reads them through pointers.
 // Each block crosses DRAM once; the re-reads are the two halo rows (or
 // cells) per range and, in 2D, the halo columns (in L2 mostly: the
 // neighbouring strip reads them as its own). The slots hold the field's
@@ -121,13 +138,16 @@ __device__ __forceinline__ void wait_free(uint64_t* empty, int64_t j,
 // ---------------------------------------------------------------------------
 // 1D: a block is `block` consecutive cells; CTA b streams the blocks
 // [nb * b / G, nb * (b + 1) / G). The producer's lane 0 copies each block
-// (its lanes load the plain cells).
+// (its lanes load the plain cells). kGhost: the field is a rank's block of
+// a mesh, and the cells just outside its two ends are the exchanged ghost
+// cells `lo` and `hi` (device pointers, one cell each); no cell is frozen.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kGhost>
 __global__ void __launch_bounds__(kThreads)
     jacobi1d_wave_kernel(const T* __restrict__ u, T* __restrict__ out,
                          int64_t n, int64_t block, int64_t nb,
-                         int64_t slot_bytes) {
+                         int64_t slot_bytes, const T* __restrict__ lo,
+                         const T* __restrict__ hi) {
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ __align__(8) uint64_t full[kSlots];
   __shared__ __align__(8) uint64_t empty[kSlots];
@@ -140,10 +160,12 @@ __global__ void __launch_bounds__(kThreads)
       mbar_init(&empty[s], kConsumerWarps);
     }
     mbar_fence_init();
-    // the cells just outside the range, read a second time; a frozen end
-    // of the field needs none
-    halo[0] = j0 > 0 ? widen(u[j0 * block - 1]) : 0.0f;
-    halo[1] = j1 * block < n ? widen(u[j1 * block]) : 0.0f;
+    // the cells just outside the range, read a second time; at an end of
+    // the field a ghost cell, or none (a frozen end)
+    halo[0] = j0 > 0 ? widen(u[j0 * block - 1])
+                     : (kGhost ? widen(*lo) : 0.0f);
+    halo[1] = j1 * block < n ? widen(u[j1 * block])
+                             : (kGhost ? widen(*hi) : 0.0f);
   }
   __syncthreads();
   if (threadIdx.x >= kConsumers) {  // the producer warp
@@ -178,9 +200,10 @@ __global__ void __launch_bounds__(kThreads)
                                        u, c0 + block)
                               : nullptr;
     // 32-bit offsets inside the block; the field's two ends are frozen
+    // unless ghost cells feed them
     const int len = static_cast<int>(c1 - c0);
-    const int frozen_lo = c0 == 0 ? 0 : -1;
-    const int frozen_hi = c1 == n ? len - 1 : -1;
+    const int frozen_lo = !kGhost && c0 == 0 ? 0 : -1;
+    const int frozen_hi = !kGhost && c1 == n ? len - 1 : -1;
     T* o = out + c0;
     for (int k = threadIdx.x; k < len; k += kConsumers) {
       float v;
@@ -207,6 +230,15 @@ __global__ void __launch_bounds__(kThreads)
 // r + 32, ... and arrives once on the slot's barrier; consumer x computes
 // column x of every row, the box's diagonals from columns x - 1 and x + 1
 // of the rows above and below.
+//
+// kGhost (the star): the field is a rank's block of a mesh, fed by the four
+// exchanged ghost lines (device pointers): `up` and `down` are the rows
+// just above and below it (nx cells each), `left` and `right` the columns
+// just left and right of it (ny cells each). The halo row of a range that
+// starts at row 0 (ends at row ny - 1) is staged from `up` (`down`); the
+// first strip's column 0 and the last strip's column nx - 1 read their
+// outer neighbour from `left` (`right`) by a plain load. No cell is
+// frozen: every cell is computed in f32 and narrowed once.
 // ---------------------------------------------------------------------------
 template <typename T>
 __host__ __device__ constexpr int64_t pitch2d() {
@@ -221,10 +253,20 @@ __device__ __forceinline__ float box8(float up, float down, float left,
                    __fadd_rn(__fadd_rn(ul, dr), __fadd_rn(ur, dl)));
 }
 
-template <typename T, bool kBox>
+// the four ghost lines of a kGhost launch
+template <typename T>
+struct Ghosts2d {
+  const T* up;
+  const T* down;
+  const T* left;
+  const T* right;
+};
+
+template <typename T, bool kBox, bool kGhost>
 __global__ void __launch_bounds__(kThreads)
     wave2d_kernel(const T* __restrict__ u, T* __restrict__ out, int ny,
-                  int nx, int rb) {
+                  int nx, int rb, Ghosts2d<T> g) {
+  static_assert(!(kBox && kGhost), "the ghost-fed form is the star's");
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ __align__(8) uint64_t full[kSlots + 1];  // the last: halo rows
   __shared__ __align__(8) uint64_t empty[kSlots];
@@ -240,7 +282,16 @@ __global__ void __launch_bounds__(kThreads)
   const int x0 = blockIdx.x * kStripX;
   const int64_t c0 = x0 > 0 ? x0 - 1 : 0;
   const int64_t c1 = x0 + kStripX + 1 < nx ? x0 + kStripX + 1 : nx;
-  auto row = [&](int y) { return u + static_cast<int64_t>(y) * nx; };
+  // the halo row above (below) the range: inside the field, a ghost row,
+  // or none (a frozen edge row)
+  const bool has_lo = y0 > 0 || kGhost;
+  const bool has_hi = y1 < ny || kGhost;
+  // row y of the field, or the ghost row y = -1 or y = ny
+  auto row = [&](int y) {
+    if (kGhost && y < 0) return g.up;
+    if (kGhost && y >= ny) return g.down;
+    return u + static_cast<int64_t>(y) * nx;
+  };
   if (threadIdx.x == 0) {
     for (int s = 0; s <= kSlots; ++s) mbar_init(&full[s], 32);
     for (int s = 0; s < kSlots; ++s) mbar_init(&empty[s], kConsumerWarps);
@@ -250,6 +301,10 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x >= kConsumers) {  // the producer warp
     const int lane = threadIdx.x - kConsumers;
     const Field f = field_of(u, static_cast<int64_t>(ny) * nx);
+    // a row's bulk copy stays inside its own tensor
+    auto field = [&](int y) {
+      return kGhost && (y < 0 || y >= ny) ? field_of(row(y), nx) : f;
+    };
     // stage the rows y of [ya, yb) with y % 32 == lane % 32 into `dst`
     // (row y at dst + (y - ya) * kPitch) on `bar`: plain loads and the
     // arrival first, then the copies
@@ -258,25 +313,24 @@ __global__ void __launch_bounds__(kThreads)
       uint32_t bytes = 0;
       for (int r = lane; r < yb - ya; r += 32) {
         const int y = ys ? ys[r] : ya + r;
-        const RowPlan<T> p = plan_row(row(y), nx, c0, c1, f);
+        const RowPlan<T> p = plan_row(row(y), nx, c0, c1, field(y));
         load_plain(p, row(y), nx, c0, c1, dst + r * kPitch, 0, 1);
         bytes += bulk_bytes(p);
       }
       mbar_arrive(bar, bytes);
       for (int r = lane; r < yb - ya; r += 32) {
         const int y = ys ? ys[r] : ya + r;
-        issue_bulk(plan_row(row(y), nx, c0, c1, f), dst + r * kPitch, bar);
+        issue_bulk(plan_row(row(y), nx, c0, c1, field(y)), dst + r * kPitch,
+                   bar);
       }
     };
-    // the halo rows, read a second time (a frozen edge row needs none)
-    const int hy[2] = {y0 > 0 ? y0 - 1 : -1, y1 < ny ? y1 : -1};
+    // the halo rows, read a second time
     int ys[2];
     int nh = 0;
-    for (int h = 0; h < 2; ++h) {
-      if (hy[h] >= 0) ys[nh++] = hy[h];
-    }
+    if (has_lo) ys[nh++] = y0 - 1;
+    if (has_hi) ys[nh++] = y1;
     // a missing low halo row leaves its buffer row unused
-    stage(0, nh, ys, halo_rows + (y0 > 0 ? 0 : kPitch), halo_bar);
+    stage(0, nh, ys, halo_rows + (has_lo ? 0 : kPitch), halo_bar);
     for (int64_t j = j0; j < j1; ++j) {
       wait_free(empty, j, j0);
       const int yb = static_cast<int>(j * rb);
@@ -289,21 +343,28 @@ __global__ void __launch_bounds__(kThreads)
   mbar_wait(halo_bar, 0);
   const int x = x0 + static_cast<int>(threadIdx.x);
   const int64_t k = x - c0;  // column x in a staged row
-  auto srow = [&](const uint8_t* d, int y) { return staged(d, row(y), c0); };
+  // the column of the thread whose left (right) neighbour is a ghost cell
+  const T* ghost_l = kGhost && x == 0 ? g.left : nullptr;
+  const T* ghost_r = kGhost && x == nx - 1 ? g.right : nullptr;
+  // field row y staged at d, and a halo row, which may be a ghost row
+  auto srow = [&](const uint8_t* d, int y) {
+    return staged(d, u + static_cast<int64_t>(y) * nx, c0);
+  };
+  auto shalo = [&](const uint8_t* d, int y) { return staged(d, row(y), c0); };
   for (int64_t j = j0; j < j1; ++j) {
     mbar_wait(&full[slot_of(j, j0)], parity_of(j, j0));
     if (j + 1 < j1) mbar_wait(&full[slot_of(j + 1, j0)], parity_of(j + 1, j0));
+    const uint8_t* cur = ring + slot_of(j, j0) * slot_bytes;
     const int yb = static_cast<int>(j * rb);
     const int ye = yb + rb < ny ? yb + rb : ny;
-    const uint8_t* cur = ring + slot_of(j, j0) * slot_bytes;
     if (x < nx) {
-      // row yb - 1: the last row of block j - 1, or the low halo row
+      // row y - 1: the last row of block j - 1, or the low halo row
       const T* up = nullptr;
       if (j > j0) {
         up = srow(ring + slot_of(j - 1, j0) * slot_bytes + (rb - 1) * kPitch,
                   yb - 1);
-      } else if (yb > 0) {
-        up = srow(halo_rows, yb - 1);
+      } else if (has_lo) {
+        up = shalo(halo_rows, yb - 1);
       }
       const T* mid = srow(cur, yb);
       for (int y = yb; y < ye; ++y) {
@@ -314,11 +375,11 @@ __global__ void __launch_bounds__(kThreads)
           down = srow(cur + (y + 1 - yb) * kPitch, y + 1);
         } else if (j + 1 < j1) {
           down = srow(ring + slot_of(j + 1, j0) * slot_bytes, y + 1);
-        } else if (y + 1 < ny) {
-          down = srow(halo_rows + kPitch, y + 1);
+        } else if (has_hi) {
+          down = shalo(halo_rows + kPitch, y + 1);
         }
         float v;
-        if (y == 0 || y == ny - 1 || x == 0 || x == nx - 1) {
+        if (!kGhost && (y == 0 || y == ny - 1 || x == 0 || x == nx - 1)) {
           v = widen(mid[k]);
         } else if (kBox) {
           v = __fmul_rn(
@@ -327,10 +388,11 @@ __global__ void __launch_bounds__(kThreads)
                    widen(down[k - 1]), widen(down[k + 1])),
               0.125f);
         } else {
-          v = __fmul_rn(
-              __fadd_rn(__fadd_rn(widen(up[k]), widen(down[k])),
-                        __fadd_rn(widen(mid[k - 1]), widen(mid[k + 1]))),
-              0.25f);
+          const float left = ghost_l ? widen(ghost_l[y]) : widen(mid[k - 1]);
+          const float right = ghost_r ? widen(ghost_r[y]) : widen(mid[k + 1]);
+          v = __fmul_rn(__fadd_rn(__fadd_rn(widen(up[k]), widen(down[k])),
+                                  __fadd_rn(left, right)),
+                        0.25f);
         }
         out[static_cast<int64_t>(y) * nx + x] = narrow<T>(v);
         up = mid;
@@ -528,10 +590,10 @@ int resident_ctas(K kernel, int64_t smem, int* count) {
   return err;
 }
 
-template <typename T>
-int launch1d(const void* u, void* out, int64_t n, int rows,
-             cudaStream_t stream) {
-  auto kernel = jacobi1d_wave_kernel<T>;
+template <typename T, bool kGhost>
+int launch1d(const void* u, void* out, int64_t n, int rows, const void* lo,
+             const void* hi, cudaStream_t stream) {
+  auto kernel = jacobi1d_wave_kernel<T, kGhost>;
   static const int opted = allow_smem(kernel);
   if (opted != 0) return opted;
   const int64_t block = static_cast<int64_t>(rows) * 128;
@@ -545,14 +607,14 @@ int launch1d(const void* u, void* out, int64_t n, int rows,
   const int64_t grid = nb < resident ? nb : resident;
   kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
       static_cast<const T*>(u), static_cast<T*>(out), n, block, nb,
-      slot_bytes);
+      slot_bytes, static_cast<const T*>(lo), static_cast<const T*>(hi));
   return cudaGetLastError();
 }
 
-template <typename T, bool kBox>
+template <typename T, bool kBox, bool kGhost>
 int launch2d(const void* u, void* out, int ny, int nx, int rb,
-             cudaStream_t stream) {
-  auto kernel = wave2d_kernel<T, kBox>;
+             const void* const* ghosts, cudaStream_t stream) {
+  auto kernel = wave2d_kernel<T, kBox, kGhost>;
   static const int opted = allow_smem(kernel);
   if (opted != 0) return opted;
   const int64_t smem = (kSlots * static_cast<int64_t>(rb) + 2) * pitch2d<T>();
@@ -565,8 +627,13 @@ int launch2d(const void* u, void* out, int ny, int nx, int rb,
   int64_t ranges = resident / strips;
   ranges = ranges < 1 ? 1 : (ranges > nb ? nb : ranges);
   const dim3 grid(strips, static_cast<unsigned>(ranges));
+  Ghosts2d<T> g{};
+  if (kGhost) {
+    g = {static_cast<const T*>(ghosts[0]), static_cast<const T*>(ghosts[1]),
+         static_cast<const T*>(ghosts[2]), static_cast<const T*>(ghosts[3])};
+  }
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(u), static_cast<T*>(out), ny, nx, rb);
+      static_cast<const T*>(u), static_cast<T*>(out), ny, nx, rb, g);
   return cudaGetLastError();
 }
 
@@ -610,18 +677,35 @@ int launch27(const void* u, void* out, int nz, int ny, int nx, int ty,
   return cudaErrorInvalidValue;
 }
 
-template <bool kBox>
-int wave2d(const void* u, void* out, int ny, int nx, int dtype, int periodic,
-           int rows, void* stream) {
-  if (ny < 3 || nx < 3 || periodic || rows < 1) return cudaErrorInvalidValue;
+// `ghosts`: up, down, left, right of a kGhost launch
+template <bool kBox, bool kGhost>
+int wave2d(const void* u, void* out, int ny, int nx, int dtype, int rows,
+           const void* const* ghosts, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return launch2d<float, kBox>(u, out, ny, nx, rows, s);
+      return launch2d<float, kBox, kGhost>(u, out, ny, nx, rows, ghosts, s);
     case kBFloat16:
-      return launch2d<__nv_bfloat16, kBox>(u, out, ny, nx, rows, s);
+      return launch2d<__nv_bfloat16, kBox, kGhost>(u, out, ny, nx, rows,
+                                                   ghosts, s);
     case kFloat16:
-      return launch2d<__half, kBox>(u, out, ny, nx, rows, s);
+      return launch2d<__half, kBox, kGhost>(u, out, ny, nx, rows, ghosts, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kGhost>
+int wave1d(const void* u, void* out, int64_t n, int dtype, int rows,
+           const void* lo, const void* hi, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return launch1d<float, kGhost>(u, out, n, rows, lo, hi, s);
+    case kBFloat16:
+      return launch1d<__nv_bfloat16, kGhost>(u, out, n, rows, lo, hi, s);
+    case kFloat16:
+      return launch1d<__half, kGhost>(u, out, n, rows, lo, hi, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -631,34 +715,53 @@ int wave2d(const void* u, void* out, int ny, int nx, int dtype, int periodic,
 
 // C interface. Each launcher enqueues one kernel on `stream` and returns
 // the launch's cudaError_t (0 = launched); cudaErrorInvalidValue for
-// arguments the kernels do not take: periodic (the arm is dirichlet only)
-// and a block whose ring exceeds shared memory among them.
+// arguments the kernels do not take: periodic (the single-device arm is
+// dirichlet only), a missing ghost and a block whose ring exceeds shared
+// memory among them.
 extern "C" {
 
 int tc_jacobi1d_wave(const void* u, void* out, int64_t n, int dtype,
                      int periodic, int rows_per_chunk, void* stream) {
   if (n < 3 || periodic || rows_per_chunk < 1) return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return launch1d<float>(u, out, n, rows_per_chunk, s);
-    case kBFloat16:
-      return launch1d<__nv_bfloat16>(u, out, n, rows_per_chunk, s);
-    case kFloat16:
-      return launch1d<__half>(u, out, n, rows_per_chunk, s);
-    default:
-      return cudaErrorInvalidValue;
+  return wave1d<false>(u, out, n, dtype, rows_per_chunk, nullptr, nullptr,
+                       stream);
+}
+
+// One step of a rank's 1D block of n >= 1 cells fed by its ghost cells
+// `lo` and `hi` (one cell each, of the block's dtype, on its device).
+int tc_jacobi1d_wave_ghost(const void* u, void* out, const void* lo,
+                           const void* hi, int64_t n, int dtype,
+                           int rows_per_chunk, void* stream) {
+  if (n < 1 || rows_per_chunk < 1 || !lo || !hi) {
+    return cudaErrorInvalidValue;
   }
+  return wave1d<true>(u, out, n, dtype, rows_per_chunk, lo, hi, stream);
 }
 
 int tc_jacobi2d_wave(const void* u, void* out, int ny, int nx, int dtype,
                      int periodic, int rows, void* stream) {
-  return wave2d<false>(u, out, ny, nx, dtype, periodic, rows, stream);
+  if (ny < 3 || nx < 3 || periodic || rows < 1) return cudaErrorInvalidValue;
+  return wave2d<false, false>(u, out, ny, nx, dtype, rows, nullptr, stream);
+}
+
+// One star step of a rank's (ny, nx) block fed by its four ghost lines:
+// the rows `up` and `down` (nx cells each) and the columns `left` and
+// `right` (ny cells each), contiguous, of the block's dtype, on its device.
+int tc_jacobi2d_wave_ghost(const void* u, void* out, const void* up,
+                           const void* down, const void* left,
+                           const void* right, int ny, int nx, int dtype,
+                           int rows, void* stream) {
+  if (ny < 1 || nx < 1 || rows < 1 || !up || !down || !left || !right) {
+    return cudaErrorInvalidValue;
+  }
+  const void* ghosts[4] = {up, down, left, right};
+  return wave2d<false, true>(u, out, ny, nx, dtype, rows, ghosts, stream);
 }
 
 int tc_stencil9_wave(const void* u, void* out, int ny, int nx, int dtype,
                      int periodic, int rows, void* stream) {
-  return wave2d<true>(u, out, ny, nx, dtype, periodic, rows, stream);
+  if (ny < 3 || nx < 3 || periodic || rows < 1) return cudaErrorInvalidValue;
+  return wave2d<true, false>(u, out, ny, nx, dtype, rows, nullptr, stream);
 }
 
 int tc_stencil27_wave(const void* u, void* out, int nz, int ny, int nx,

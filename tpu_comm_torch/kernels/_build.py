@@ -50,6 +50,8 @@ SIGNATURES = {
     "tc_jacobi2d_grid": (_P, _P, _I, _I, _I, _I, _I, _P),
     "tc_jacobi1d_wave": (_P, _P, _N, _I, _I, _I, _P),
     "tc_jacobi2d_wave": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "tc_jacobi1d_wave_ghost": (_P, _P, _P, _P, _N, _I, _I, _P),
+    "tc_jacobi2d_wave_ghost": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tc_stencil9_wave": (_P, _P, _I, _I, _I, _I, _I, _P),
     "tc_stencil27_wave": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tc_jacobi2d_stream": (_P, _P, _I, _I, _I, _I, _I, _P),

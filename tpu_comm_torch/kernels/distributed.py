@@ -26,6 +26,17 @@ Local-update arms (``IMPLS``; the JAX names in brackets):
   field's dtype (:func:`multi_local_step`); one call of the step
   advances ``t_steps`` iterations. JAX's arm has no Pallas kernel
   either: its in-block steps are lax-level, and so are these.
+- ``wave`` [pallas-wave] — the ring-buffered wave kernels
+  (``csrc/wave.cu``) as the update, every stencil, every bc (the wrap
+  arrives through the ghosts). In 1D and 2D the exchanged ghosts feed
+  the kernel (``step_wave_ghost``): it waits for the exchange, then
+  computes every cell, so nothing is recomputed after it (JAX's 2D form
+  recomputes its two seam columns outside the kernel; here the kernel
+  takes the x ghosts too). In 3D the update is the wavefront at t = 1
+  (``jacobi3d.step_multi``), and for the box stencils their wave kernels
+  under dirichlet; both depend on the raw block only, so they run while
+  the exchange is in flight, and the faces are recomputed as for
+  ``block``. ``rows_per_chunk`` sets the 1D and 2D ring blocks.
 
 ``pack="kernel"`` (3D mesh; overlap, block, stream) routes the exchange
 through the face-pack kernel (``kernels/pack.py``) instead of slice
@@ -75,7 +86,7 @@ from tpu_comm_torch.kernels.tiling import check_t_steps
 from tpu_comm_torch.topo import CartMesh
 
 #: the port's local-update arms
-IMPLS = ("torch", "overlap", "block", "stream", "multi")
+IMPLS = ("torch", "overlap", "block", "stream", "multi", "wave")
 #: options of the JAX ``make_local_step`` that wait for a later slice
 UNPORTED_OPTIONS = ("halo_wire", "halo_parts", "halo_width", "fuse_steps")
 
@@ -254,6 +265,29 @@ def multi_local_step(cart: CartMesh, bc: str, t: int, from_padded):
     return local_step
 
 
+def wave_ghost_local_step(cart: CartMesh, bc: str,
+                          rows_per_chunk: int | None = None):
+    """The 1D and 2D star's ``wave`` step: exchange every axis' ghosts,
+    wait, then one launch of the ghost-fed wave kernel
+    (``jacobi1d``/``jacobi2d.step_wave_ghost``) computes every cell of the
+    block from the block and its ghosts, and the dirichlet freeze follows.
+    The kernel consumes the ghosts, so it runs after the exchange (JAX's
+    runs after its streamed axis' exchange; the port's kernel takes the
+    x ghosts too, so no transfer overlaps it)."""
+    family = kernels_for(len(cart.axis_names))
+
+    def local_step(block, out=None):
+        ghosts = halo.start_exchange_ghosts(block, cart).wait()
+        lines = [g for _, lo, hi in ghosts for g in (lo, hi)]
+        new = family.step_wave_ghost(block, *lines,
+                                     rows_per_chunk=rows_per_chunk, out=out)
+        if bc == "dirichlet":
+            dirichlet_freeze(new, block, cart)
+        return new
+
+    return local_step
+
+
 def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
                     pack: str = "fused", **kwargs):
     """Build the per-iteration function ``local_step(block, out=None)``
@@ -296,11 +330,6 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
             raise ValueError(
                 f"stencil={stencil!r} needs a {want_nd}D mesh, got {nd}D"
             )
-        if impl == "wave":
-            raise ValueError(
-                f"impl {impl!r} is not yet ported for stencil={stencil!r}; "
-                f"see ROADMAP.md"
-            )
         if impl not in IMPLS:
             raise ValueError(
                 f"stencil={stencil!r} supports impl="
@@ -319,12 +348,25 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
         if kwargs.pop(name, None) is not None:
             raise ValueError(f"{name} is not yet ported; see ROADMAP.md")
     t = kwargs.pop("t_steps", 8) if impl == "multi" else None
+    rows = None
+    if impl == "wave" and stencil not in BOX:
+        rows = kwargs.pop("rows_per_chunk", None)
+        if nd == 3 and rows is not None:
+            raise ValueError(
+                "rows_per_chunk does not apply to the 3D wave (the kernel "
+                "streams single planes)"
+            )
     if kwargs:
-        raise ValueError(f"unknown kwargs for impl={impl!r}: {sorted(kwargs)}")
+        where = f"stencil={stencil!r} " if stencil in BOX else ""
+        raise ValueError(
+            f"unknown kwargs for {where}impl={impl!r}: {sorted(kwargs)}")
     from_padded = FROM_PADDED[stencil]
 
     if impl == "multi":
         return multi_local_step(cart, bc, t, from_padded)
+
+    if impl == "wave" and nd < 3 and stencil not in BOX:
+        return wave_ghost_local_step(cart, bc, rows)
 
     if impl == "torch":
 
@@ -365,7 +407,18 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
 
         def update(block, out):
             return kernel(block, bc="periodic", out=out)
-    elif impl in ("partitioned", "wave"):
+    elif impl == "wave":
+        # the 3D star's and the boxes' wave kernels freeze exactly the
+        # block's face cells, which the face recompute then replaces: the
+        # dirichlet step of the raw block, no ghost enters the kernel
+        family = kernels_for(nd, points)
+        if stencil in BOX:
+            def update(block, out):
+                return family.step_wave(block, "dirichlet", out=out)
+        else:
+            def update(block, out):
+                return family.step_multi(block, "dirichlet", 1, out=out)
+    elif impl == "partitioned":
         raise ValueError(f"impl {impl!r} is not yet ported; see ROADMAP.md")
     else:
         raise ValueError(f"unknown distributed impl {impl!r}")

@@ -8,9 +8,10 @@ its ``pallas-multi``: ``lax`` (``step_lax``), ``pallas-stream``
 (``step_pallas``, ``_jacobi1d_kernel``), ``pallas-grid``
 (``step_pallas_grid``, ``_jacobi1d_grid_kernel`` and its endpoint fix
 ``_fix_global_endpoints``), ``pallas-wave`` (``step_pallas_wave``,
-``_jacobi1d_wave_kernel``) and ``pallas-multi`` (``step_pallas_multi``,
+``_jacobi1d_wave_kernel``), ``pallas-multi`` (``step_pallas_multi``,
 its kernel ``_jacobi1d_multi_kernel`` and its edge fix
-``_edge_cone_fix_multi``).
+``_edge_cone_fix_multi``) and the mesh ``pallas-wave``'s local update
+(``step_pallas_wave_ghost``, ``_jacobi1d_wave_ghost_kernel``).
 
 Update rule (Jacobi, ping-pong):  u'[i] = (u[i-1] + u[i+1]) / 2
 Boundary: ``dirichlet`` freezes u[0] and u[N-1]; ``periodic`` wraps.
@@ -31,6 +32,11 @@ Boundary: ``dirichlet`` freezes u[0] and u[N-1]; ``periodic`` wraps.
 - ``step_wave``   — the wrapper of ``jacobi1d_wave_kernel`` in
   ``csrc/wave.cu``: each CTA streams its range of blocks through a ring
   in shared memory. Dirichlet only, on every device, as JAX's arm.
+- ``step_wave_ghost_plain`` — one step of a rank's block whose two end
+  cells read the exchanged ghost cells, f32 compute, one narrowing, no
+  freeze (the caller applies the bc).
+- ``step_wave_ghost`` — the wrapper of ``jacobi1d_wave_kernel``'s
+  ghost-fed form in ``csrc/wave.cu``: the mesh ``wave`` arm's update.
 - ``step_block``  — the wrapper of ``jacobi1d_block_kernel`` in
   ``csrc/jacobi_block.cu``, the port of the TPU's whole-field kernel:
   the same function by another design (see the source). It is the
@@ -55,11 +61,14 @@ from tpu_comm_torch.kernels import (
 from tpu_comm_torch.kernels import padded
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
+    KERNEL_DTYPE_CODES,
+    check_ghosts,
     check_kernel_args,
     check_staged_smem,
     check_wave_bc,
     f32_compute,
     grid_smem,
+    launch_kernel,
     launch_multi,
     launch_stencil,
     narrow_store,
@@ -126,6 +135,48 @@ def step_multi_plain(u: torch.Tensor, bc: str = "dirichlet",
     """``t_steps`` 1D steps in plain PyTorch: f32 compute, one RTNE
     narrowing at the end."""
     return multi_plain(_step_f32, u, bc, t_steps, out)
+
+
+def step_wave_ghost_plain(u: torch.Tensor, lo: torch.Tensor,
+                          hi: torch.Tensor,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """One step of a rank's 1D block in plain PyTorch, its two end cells'
+    outer neighbours the ghost cells ``lo`` and ``hi`` (shape (1,)):
+    f32 compute, one RTNE narrowing, nothing frozen."""
+    lo, hi = check_ghosts(u, (lo, hi), ((1,), (1,)), "cells", out)
+    p = torch.cat([f32_compute(lo), f32_compute(u), f32_compute(hi)])
+    return narrow_store((p[:-2] + p[2:]) * 0.5, u.dtype, out)
+
+
+def step_wave_ghost(u: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                    rows_per_chunk: int | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """One step of a rank's 1D block fed by its ghost cells ``lo`` and
+    ``hi`` (shape (1,), the block's dtype and device): the ghost-fed wave
+    kernel for a CUDA tensor, :func:`step_wave_ghost_plain` for a CPU
+    tensor. Nothing is frozen: the caller applies the bc. A ring block is
+    ``rows_per_chunk`` rows of 128 cells (default
+    :func:`default_wave_chunk`). Writes into ``out`` (which must not
+    alias ``u``) when given. ``step_wave_ghost.launches`` counts kernel
+    launches."""
+    lo, hi = check_ghosts(u, (lo, hi), ((1,), (1,)), "cells", out)
+    if u.device.type == "cpu":
+        return step_wave_ghost_plain(u, lo, hi, out)
+    out = check_kernel_args(u, 1, out, min_extents=(1,))
+    if rows_per_chunk is None:
+        rows_per_chunk = default_wave_chunk(u.shape)
+    if rows_per_chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {rows_per_chunk}")
+    check_staged_smem("wave", wave_smem(1, rows_per_chunk, u.element_size()),
+                      rows_per_chunk)
+    launch_kernel("tc_jacobi1d_wave_ghost", u, u.data_ptr(), out.data_ptr(),
+                  lo.data_ptr(), hi.data_ptr(), u.numel(),
+                  KERNEL_DTYPE_CODES[u.dtype], rows_per_chunk)
+    step_wave_ghost.launches += 1
+    return out
+
+
+step_wave_ghost.launches = 0
 
 
 def step_stream(u: torch.Tensor, bc: str = "dirichlet",

@@ -7,9 +7,11 @@ its ``pallas-multi``: ``lax`` (``step_lax``), ``pallas-stream``
 ``pallas`` (``step_pallas``, ``_jacobi2d_kernel``), ``pallas-grid``
 (``step_pallas_grid``, ``_jacobi2d_grid_kernel`` and its top and bottom
 row recompute), ``pallas-wave`` (``step_pallas_wave``,
-``_jacobi2d_wave_kernel``) and ``pallas-multi`` (``step_pallas_multi``,
+``_jacobi2d_wave_kernel``), ``pallas-multi`` (``step_pallas_multi``,
 its kernel ``_jacobi2d_multi_kernel`` and its edge fix
-``_edge_band_fix_multi_2d``).
+``_edge_band_fix_multi_2d``) and the mesh ``pallas-wave``'s local update
+(``step_pallas_wave_ghost``, ``_jacobi2d_wave_ghost_kernel``, with the
+seam-column recompute of JAX's ``make_local_step`` folded in).
 
 Update rule: u'[i,j] = ((u[i-1,j] + u[i+1,j]) + (u[i,j-1] + u[i,j+1])) / 4
 Boundary: ``dirichlet`` freezes the one-cell ring; ``periodic`` wraps.
@@ -28,6 +30,17 @@ Boundary: ``dirichlet`` freezes the one-cell ring; ``periodic`` wraps.
   ``csrc/wave.cu``: each CTA streams a range of row blocks of a
   256-column strip through a ring in shared memory. Dirichlet only, on
   every device, as JAX's arm.
+- ``step_wave_ghost_plain`` — one star step of a rank's block whose edge
+  cells read the four exchanged ghost lines, f32 compute, one narrowing,
+  no freeze (the caller applies the bc).
+- ``step_wave_ghost`` — the wrapper of ``wave2d_kernel``'s ``kGhost``
+  form in ``csrc/wave.cu``: the mesh ``wave`` arm's update. JAX's kernel
+  takes the up and down ghost rows and wraps x inside the block, and its
+  caller recomputes the two seam columns from the x ghosts in the
+  field's dtype (ROADMAP Trap 4); here the kernel takes all four ghost
+  lines and computes every cell in f32: the same values in float32, and
+  in bfloat16/float16 within 2 ulps on the two seam columns (two levels
+  of rounded adds against one rounding; ``tests/test_torch_wave.py``).
 - ``step_block``  — the wrapper of ``jacobi2d_block_kernel`` in
   ``csrc/jacobi_block.cu``, the port of the TPU's whole-field kernel:
   the same function by another design (see the source). It is the
@@ -52,12 +65,15 @@ from tpu_comm_torch.kernels import (
 from tpu_comm_torch.kernels import padded
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
+    KERNEL_DTYPE_CODES,
     MAX_GRID_Y,
+    check_ghosts,
     check_kernel_args,
     check_staged_smem,
     check_wave_bc,
     f32_compute,
     grid_smem,
+    launch_kernel,
     launch_multi,
     launch_stencil,
     narrow_store,
@@ -226,6 +242,61 @@ def step_wave(u: torch.Tensor, bc: str = "dirichlet",
 
 
 step_wave.launches = 0
+
+
+def _ghost_lines(u: torch.Tensor, ghosts, out) -> list[torch.Tensor]:
+    ny, nx = u.shape
+    return check_ghosts(u, ghosts, ((1, nx), (1, nx), (ny, 1), (ny, 1)),
+                        "lines (up, down, left, right)", out)
+
+
+def step_wave_ghost_plain(u: torch.Tensor, up: torch.Tensor,
+                          down: torch.Tensor, left: torch.Tensor,
+                          right: torch.Tensor,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """One star step of a rank's 2D block in plain PyTorch, the
+    neighbours past its edges the ghost rows ``up`` and ``down`` ((1, nx))
+    and columns ``left`` and ``right`` ((ny, 1)): f32 compute, one RTNE
+    narrowing, nothing frozen."""
+    up, down, left, right = (
+        f32_compute(g) for g in _ghost_lines(u, (up, down, left, right), out))
+    a = f32_compute(u)
+    col = torch.cat([up, a, down], 0)
+    row = torch.cat([left, a, right], 1)
+    new = (col[:-2] + col[2:]) + (row[:, :-2] + row[:, 2:])
+    return narrow_store(new * 0.25, u.dtype, out)
+
+
+def step_wave_ghost(u: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
+                    left: torch.Tensor, right: torch.Tensor,
+                    rows_per_chunk: int | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """One star step of a rank's 2D block fed by its four ghost lines (the
+    rows ``up`` and ``down``, (1, nx); the columns ``left`` and ``right``,
+    (ny, 1); the block's dtype and device): the ghost-fed wave kernel for
+    a CUDA tensor, :func:`step_wave_ghost_plain` for a CPU tensor. Nothing
+    is frozen: the caller applies the bc. A ring block is
+    ``rows_per_chunk`` rows (default :func:`default_wave_chunk`) of a
+    256-column strip. Writes into ``out`` (which must not alias ``u``)
+    when given. ``step_wave_ghost.launches`` counts kernel launches."""
+    ghosts = _ghost_lines(u, (up, down, left, right), out)
+    if u.device.type == "cpu":
+        return step_wave_ghost_plain(u, *ghosts, out=out)
+    out = check_kernel_args(u, 2, out, min_extents=(1, 1))
+    if rows_per_chunk is None:
+        rows_per_chunk = default_wave_chunk(u.shape)
+    if rows_per_chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {rows_per_chunk}")
+    check_staged_smem("wave", wave_smem(2, rows_per_chunk, u.element_size()),
+                      rows_per_chunk)
+    launch_kernel("tc_jacobi2d_wave_ghost", u, u.data_ptr(), out.data_ptr(),
+                  *(g.data_ptr() for g in ghosts), *u.shape,
+                  KERNEL_DTYPE_CODES[u.dtype], rows_per_chunk)
+    step_wave_ghost.launches += 1
+    return out
+
+
+step_wave_ghost.launches = 0
 
 
 def step_block(u: torch.Tensor, bc: str = "dirichlet",

@@ -286,6 +286,31 @@ def check_staged_smem(arm: str, smem: int, chunk: int) -> None:
         )
 
 
+def check_ghosts(u: torch.Tensor, ghosts, shapes, what: str,
+                 out: torch.Tensor | None) -> list[torch.Tensor]:
+    """Validate the ghost lines of a ghost-fed kernel or its plain
+    version: each of ``ghosts`` must have its shape in ``shapes`` (the
+    JAX wrapper's message names the ``what``), ``u``'s dtype and device;
+    ``out`` must not alias ``u``. Returns the ghosts contiguous."""
+    got = [tuple(g.shape) for g in ghosts]
+    want = [tuple(s) for s in shapes]
+    if got != want:
+        raise ValueError(
+            f"ghost {what} must be {' / '.join(map(str, want))}, got "
+            f"{' / '.join(map(str, got))}"
+        )
+    for g in ghosts:
+        if g.dtype != u.dtype or g.device != u.device:
+            raise ValueError(
+                f"ghost {what} must have the block's dtype and device "
+                f"({u.dtype}, {u.device}), got {g.dtype}, {g.device}"
+            )
+    if out is not None and out.data_ptr() == u.data_ptr():
+        raise ValueError("out must not alias the input (Jacobi reads the "
+                         "old field while writing the new one)")
+    return [g.contiguous() for g in ghosts]
+
+
 def check_wave_bc(bc: str) -> None:
     """The wave arm is dirichlet only, as JAX's ``pallas-wave``."""
     if bc != "dirichlet":
