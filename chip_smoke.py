@@ -33,9 +33,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
      ragged shapes;
    - membw: every op a kernel serves x every dtype x aliased on/off x the
      default and a non-default chunk, at 2^26 elements and at a ragged
-     size; the dma copy at depths 2, 3 and 4, also with fewer chunks per
-     CTA than slots; and the stream kernel's machine code must still hold
-     its neighbour loads (``cuobjdump``);
+     size; the stream copy also on an offset view off the 16-byte grid
+     (its scalar form) at both sizes and on 1024-cell views; the dma copy
+     at every depth 2-8, also with fewer chunks than slots on the card and
+     per CTA; and each of the exact set of stream-copy instantiations
+     must still hold its neighbour loads in its machine code
+     (``cuobjdump``);
 4. the main path, in process through ``cli.main``, each run with every
    kernel's launch count set to 0 just before and read just after:
    ``stencil --impl auto --verify`` for dims 1, 2 and 3 at full size, the
@@ -81,7 +84,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 Phase 5 also times the grid, wave and stream2 kernels like the other
 single-device stencils (``measure_times``), each grid and wave kernel
-also at other chunks (ring blocks, or the 27-point wave's tile rows).
+also at other chunks (ring blocks, or the 27-point wave's tile rows); and
+the membw copies in turns with ``copy_`` (``in_turns``: the median of
+three runs and their spread) in float32 and bfloat16, in float32 beside
+the 1D stream and stream2 stencil kernels, the stream copy's other forms
+and chunks, and the dma ring's sweep of slot sizes and depths.
 
 Full sizes: stencils 1D 2^26 points, 2D 8192^2, 3D 512^3 (the box
 stencils too); membw 2^26 elements. In float32 that is 256/256/512 MiB
@@ -94,6 +101,7 @@ from fixed seeds. Phase 4's runs of one stencil share its NumPy golden
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -276,6 +284,24 @@ MEMBW_RUNS = [(op, arm) for op in ("copy", "scale", "add", "triad")
 #: kernel of the port)
 MEMBW_WRAPPER = {"chunked": "membw.step_chunked", "both": "membw.step_chunked",
                  "stream": "membw.step_stream", "dma": "membw.step_dma"}
+#: the cell widths of the stream copy's instantiations (their mangled
+#: template argument: unsigned int, unsigned short)
+STREAM_WIDTHS = {"j": "uint32_t", "t": "uint16_t"}
+#: every membw_stream instantiation csrc/membw.cu holds: out of place
+#: (__restrict__, non-coherent loads) and in place, vector and scalar form,
+#: each cell width
+STREAM_FORMS = [f"{name}<{w}, {form}>"
+                for name in ("membw_stream", "membw_stream_inplace")
+                for w in STREAM_WIDTHS.values()
+                for form in ("vector", "scalar")]
+#: rounds of the membw copies timed in turns (a kernel's time is their
+#: median)
+MEMBW_ROUNDS = 3
+#: the stream copy's chunk sweep of phase 5, KiB a CTA (float32)
+STREAM_SWEEP_KIB = (4, 16, 32)
+#: the dma ring's sweep of phase 5: slot KiB x depth (float32; a ring that
+#: does not fit a CTA is skipped)
+DMA_SWEEP = [(kib, depth) for kib in (8, 16, 32, 64) for depth in (2, 3, 4)]
 #: operations per element of each op (its bound's second term)
 MEMBW_OPS_PER_ELEM = {"copy": 0, "scale": 1, "add": 1, "triad": 2}
 T0 = time.perf_counter()
@@ -1247,15 +1273,25 @@ def check_membw(torch) -> dict:
                         del src, got
                 del want
             want = membw.copy_plain(x)
+            # the stream copy's forms: vector (16-byte aligned), scalar (an
+            # offset view off the 16-byte grid), each out of place and in
+            # place, at the default and an odd chunk
             for aliased in (False, True):
                 for rows in (None, MEMBW_ODD_CHUNK):
-                    src = x.clone() if aliased else x
-                    got = membw.step_stream(src, rows, aliased=aliased)
-                    _hold(torch, "membw_stream", got, want, errs,
-                          f"n={n} {dtype} aliased={aliased} chunk={rows}")
-                    cases["membw_stream"] += 1
-                    del src, got
-            for depth in (2, 3, 4):
+                    for off in (0, 1):
+                        src = x.clone() if aliased else x
+                        view = src[off:off + n - 128] if off else src
+                        got = membw.step_stream(view, rows, aliased=aliased)
+                        if aliased and got.data_ptr() != view.data_ptr():
+                            fail("membw_stream aliased did not write in "
+                                 "place")
+                        _hold(torch, "membw_stream", got,
+                              want[off:off + n - 128] if off else want,
+                              errs, f"n={n} {dtype} aliased={aliased} "
+                              f"chunk={rows} offset={off}")
+                        cases["membw_stream"] += 1
+                        del src, view, got
+            for depth in range(2, membw.DMA_MAX_DEPTH + 1):
                 for rows in (None, MEMBW_ODD_CHUNK):
                     got = membw.step_dma(x, rows, depth)
                     _hold(torch, "membw_dma", got, want, errs,
@@ -1264,15 +1300,43 @@ def check_membw(torch) -> dict:
                     del got
             del x, b, want
             torch.cuda.empty_cache()
+    # offset views of 1024 cells: off the 16-byte grid (scalar form) and
+    # one vector in (the vector form from a pointer that is not a
+    # tensor's start), in every dtype
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = random_field(torch, (4096,), dtype, seed=23)
+        for off in (1, 16 // x.element_size()):
+            for aliased in (False, True):
+                src = x.clone()
+                view = src[off:off + 1024]
+                _hold(torch, "membw_stream",
+                      membw.step_stream(view, aliased=aliased),
+                      x[off:off + 1024], errs,
+                      f"offset view x[{off}:{off} + 1024] {dtype} "
+                      f"aliased={aliased}")
+                cases["membw_stream"] += 1
     # fewer chunks than slots: on the whole card (3 chunks, depth 4) and
-    # per CTA (a depth-4 ring of 32 KiB slots fits once on an SM, so
-    # 3 chunks per SM give each CTA 3 < 4 chunks)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for n, rows, depth in ((128 * 3, 1, 4), (sms * 3 * 64 * 128, 64, 4)):
+    # per CTA (at every depth, 8 KiB slots and chunks for depth - 1 a CTA,
+    # one of them ragged)
+    props = torch.cuda.get_device_properties(0)
+    x = random_field(torch, (128 * 3,), torch.float32, seed=22)
+    _hold(torch, "membw_dma", membw.step_dma(x, 1, 4), x, errs,
+          "n=384 depth=4 chunk=1 (3 chunks on the card)")
+    cases["membw_dma"] += 1
+    for depth in range(2, membw.DMA_MAX_DEPTH + 1):
+        rows = 16
+        plan = membw.dma_plan(
+            1, 4, rows, depth, props.multi_processor_count,
+            props.shared_memory_per_multiprocessor,
+            props.shared_memory_per_block_optin)
+        n = plan.per_sm * props.multi_processor_count * (depth - 1) * rows \
+            * 128 - 128 * 8
         x = random_field(torch, (n,), torch.float32, seed=22)
         _hold(torch, "membw_dma", membw.step_dma(x, rows, depth), x, errs,
-              f"n={n} depth={depth} chunk={rows} (fewer chunks than slots)")
+              f"n={n} depth={depth} chunk={rows} ({depth - 1} chunks a "
+              "CTA, the last ragged)")
         cases["membw_dma"] += 1
+        del x
     for name in MEMBW_KERNELS:
         emit({"check": {"kernel": name, "cases": cases[name],
                         "sizes": [MEMBW_N, MEMBW_RAGGED], "s": MEMBW_S,
@@ -1283,8 +1347,14 @@ def check_membw(torch) -> dict:
 
 
 def check_stream_loads(libs) -> None:
-    """The stream copy must keep the 1D stencil's two neighbour loads:
-    count the global loads in each instantiation's machine code."""
+    """The stream copy must keep the 1D stencil's neighbour loads: in the
+    machine code of each instantiation the library holds, exactly
+    :data:`STREAM_FORMS`, count the global loads. A scalar form must
+    show three a cell (at least 3); a vector form the 16-byte vector load
+    and both run-edge neighbour loads (at least one 128-bit and two
+    narrower ones)."""
+    import re
+
     from tpu_comm_torch.kernels import _build
 
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
@@ -1295,12 +1365,30 @@ def check_stream_loads(libs) -> None:
     loads = {}
     for part in sass.split("Function : ")[1:]:
         fn = part.split(None, 1)[0]
-        if "membw_stream" in fn:
-            loads[fn] = sum("LDG" in line for line in part.splitlines())
+        # Itanium mangling: membw_stream[_inplace]I<j|t>Lb<0|1>E
+        m = re.search(r"(membw_stream(?:_inplace)?)I([jt])Lb([01])E", fn)
+        if m is None:
+            if "membw_stream" in fn:
+                fail(f"unexpected membw_stream instantiation {fn}")
+            continue
+        name, width, vec = m.groups()
+        kind = "vector" if vec == "1" else "scalar"
+        form = f"{name}<{STREAM_WIDTHS[width]}, {kind}>"
+        ops = re.findall(r"\bLDG(?:\.[A-Z0-9]+)*", part)
+        loads[form] = {"ldg": len(ops),
+                       "ldg_128": sum(".128" in op for op in ops)}
     emit({"stream_loads": {"global_loads_per_kernel": loads,
                            "elapsed_s": time.perf_counter() - T0}})
-    if len(loads) != 3 or min(loads.values()) < 3:
-        fail(f"membw_stream lost its neighbour loads: {loads}")
+    if set(loads) != set(STREAM_FORMS):
+        fail(f"membw_stream instantiations {sorted(loads)} are not "
+             f"{sorted(STREAM_FORMS)}")
+    for form, got in loads.items():
+        if form.endswith("vector>"):
+            lost = got["ldg_128"] < 1 or got["ldg"] - got["ldg_128"] < 2
+        else:
+            lost = got["ldg"] < 3
+        if lost:
+            fail(f"{form} lost its neighbour loads: {got}")
 
 
 def drive_membw(torch, counters) -> dict:
@@ -1347,23 +1435,84 @@ def drive_membw(torch, counters) -> dict:
     return launches
 
 
-def measure_membw(torch) -> dict:
-    """Phase 5, membw: per-pass times at 2^26 float32 elements, per
-    (kernel, op)."""
+def in_turns(torch, calls: dict, rounds: int = MEMBW_ROUNDS) -> dict:
+    """``rounds`` :func:`time_ms` runs of each call of ``calls`` (label ->
+    fn), in turns: the labels in order in even rounds and reversed in odd
+    ones (copy_, kernel, kernel, copy_, ...). Returns label -> the median
+    ms, the spread (max - min) and the runs."""
+    runs = {label: [] for label in calls}
+    for r in range(rounds):
+        for label in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            runs[label].append(time_ms(torch, calls[label], 50))
+    return {label: {"ms": statistics.median(v), "spread_ms": max(v) - min(v),
+                    "runs": v} for label, v in runs.items()}
+
+
+def measure_membw(torch, mods) -> dict:
+    """Phase 5, membw: per-pass times at 2^26 elements. The copies (copy_,
+    the chunked, stream and dma kernels) in turns (:func:`in_turns`), in
+    float32 and bfloat16; in float32 with them the stream copy's scalar
+    and in-place forms, the 1D stream and stream2 stencil kernels, the
+    stream copy at other chunks and the dma ring at other slot sizes and
+    depths. scale, add and triad once each. Returns the float32 times
+    per (kernel, op)."""
     from tpu_comm_torch.bench import TRAFFIC
     from tpu_comm_torch.kernels import membw
 
     n = MEMBW_N
+    props = torch.cuda.get_device_properties(0)
+    turns = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = random_field(torch, (n,), dtype, seed=30)
+        dst = torch.empty_like(x)
+        xo, do = x[1:1 + n - 128], dst[1:1 + n - 128]
+        calls = {
+            "copy_": lambda: dst.copy_(x),
+            "membw_unary": lambda: membw.step_chunked(x, None, 1.0, "copy",
+                                                      out=dst),
+            "membw_stream": lambda: membw.step_stream(x, out=dst),
+            "membw_dma": lambda: membw.step_dma(x, out=dst),
+        }
+        if dtype == torch.float32:
+            stencil = mods[1].STEPS
+            calls.update({
+                "membw_stream scalar form (offset view, n - 128)":
+                    lambda: membw.step_stream(xo, out=do),
+                "membw_stream in place":
+                    lambda: membw.step_stream(dst, out=dst, aliased=True),
+                "jacobi1d_stream": lambda: stencil["stream"](
+                    x, "dirichlet", out=dst),
+                "jacobi1d_stream2": lambda: stencil["stream2"](
+                    x, "dirichlet", out=dst),
+            })
+            for kib in STREAM_SWEEP_KIB:
+                rows = kib * 1024 // (128 * x.element_size())
+                calls[f"membw_stream {kib} KiB a CTA"] = (
+                    lambda rows=rows: membw.step_stream(x, rows, out=dst))
+            for kib, depth in DMA_SWEEP:
+                rows = kib * 1024 // (128 * x.element_size())
+                if (depth * kib * 1024 + membw.DMA_BARRIER_BYTES
+                        > props.shared_memory_per_block_optin):
+                    continue
+                calls[f"membw_dma {kib} KiB x {depth}"] = (
+                    lambda rows=rows, depth=depth: membw.step_dma(
+                        x, rows, depth, out=dst))
+        name = str(dtype).removeprefix("torch.")
+        turns[name] = in_turns(torch, calls)
+        emit({"membw_turns": {
+            "dtype": name, "shape": [n], "rounds": MEMBW_ROUNDS,
+            "times": {label: {k: t[k] for k in ("ms", "spread_ms")}
+                      for label, t in turns[name].items()},
+            "over_copy_": {label: t["ms"] / turns[name]["copy_"]["ms"]
+                           for label, t in turns[name].items()},
+            "elapsed_s": time.perf_counter() - T0}})
+        del x, dst, xo, do, calls
+        torch.cuda.empty_cache()
+
     x = random_field(torch, (n,), torch.float32, seed=30)
     b = random_field(torch, (n,), torch.float32, seed=31)
     dst = torch.empty_like(x)
     s = MEMBW_S
-    kernel_call = {
-        "membw_unary": lambda op: membw.step_chunked(x, b, s, op, out=dst),
-        "membw_binary": lambda op: membw.step_chunked(x, b, s, op, out=dst),
-        "membw_stream": lambda op: membw.step_stream(x, out=dst),
-        "membw_dma": lambda op: membw.step_dma(x, out=dst),
-    }
     library = {
         "copy": ("dst.copy_(x)", lambda: dst.copy_(x)),
         "scale": ("torch.mul(x, s, out=dst)",
@@ -1372,15 +1521,31 @@ def measure_membw(torch) -> dict:
         "triad": ("torch.add(b, x, alpha=s, out=dst)",
                   lambda: torch.add(b, x, alpha=s, out=dst)),
     }
+    copies = {
+        "membw_unary": lambda: membw.step_chunked(x, None, 1.0, "copy",
+                                                  out=dst),
+        "membw_stream": lambda: membw.step_stream(x, out=dst),
+        "membw_dma": lambda: membw.step_dma(x, out=dst),
+    }
+    f32 = turns["float32"]
     out = {}
     for name, (_, ops, _) in MEMBW_KERNELS.items():
         for op in ops:
-            kernel_ms = time_ms(torch, lambda: kernel_call[name](op), 50)
-            got = kernel_call[name](op).clone()
+            if op == "copy":
+                kernel = copies[name]
+                kernel_ms = f32[name]["ms"]
+                spread = f32[name]["spread_ms"]
+                library_ms = f32["copy_"]["ms"]
+            else:
+                def kernel():
+                    return membw.step_chunked(x, b, s, op, out=dst)
+                kernel_ms = time_ms(torch, kernel, 50)
+                spread = None
+                library_ms = time_ms(torch, library[op][1], 50)
+            got = kernel().clone()
             plain_ms = time_ms(
                 torch, lambda: membw.step_plain(x, b, s, op, out=dst), 20)
             call, lib = library[op]
-            library_ms = time_ms(torch, lib, 50)
             lib_err = float((lib() - got).abs().max())
             nbytes = TRAFFIC[op] * n * x.element_size()
             ops_n = MEMBW_OPS_PER_ELEM[op] * n
@@ -1388,9 +1553,11 @@ def measure_membw(torch) -> dict:
             ops_ms = ops_n / PEAK_F32_OPS_PER_S * 1e3
             out[(name, op)] = {
                 "kernel": name, "op": op, "shape": [n], "dtype": "float32",
-                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "kernel_ms": kernel_ms, "kernel_spread_ms": spread,
+                "plain_ms": plain_ms,
                 "library_ms": library_ms, "library_call": call,
                 "library_max_abs_err": lib_err,
+                "copy_ms": f32["copy_"]["ms"],
                 "bytes": nbytes, "ops": ops_n,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1458,7 +1625,7 @@ def main() -> int:
     multi_times = measure_multi(torch, mods)
     ghost_times = measure_ghost(torch, mods)
     pack_times = measure_pack(torch)
-    membw_times = measure_membw(torch)
+    membw_times = measure_membw(torch, mods)
     measure_dist_steps(torch, mods)
 
     print(smi, flush=True)
@@ -1525,6 +1692,7 @@ def main() -> int:
             "max_abs_err": membw_errs[name], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "spread_ms": t["kernel_spread_ms"], "copy_ms": t["copy_ms"],
             "op": op, "shape": t["shape"], "dtype": "float32",
         })
     emit({"elapsed": {"seconds": time.perf_counter() - T0}})

@@ -129,6 +129,60 @@ def test_membw_copies_are_bitwise(card, dtype):
     assert torch.equal(membw.step_dma(x, rows_per_chunk=1, depth=4), x)
 
 
+@pytest.mark.parametrize("dtype", MEMBW_DTYPES)
+@pytest.mark.parametrize("aliased", [False, True])
+@pytest.mark.parametrize("n", [128, 256, 384, 128 * 8 * 3 + 128, 1 << 20])
+def test_membw_stream_forms_are_bitwise(card, n, aliased, dtype):
+    """Out of place and in place, vector form (the tensor and a view one
+    vector in) and scalar form (a view off the 16-byte grid), at ragged
+    sizes and chunks."""
+    x, _ = _membw_operands(n + 128, dtype)
+    for off in (0, 1, 16 // x.element_size()):
+        for rows in (None, 1, 3, 64):
+            src = x.clone()
+            view = src[off:off + n]
+            got = membw.step_stream(view, rows, aliased=aliased)
+            torch.cuda.synchronize()
+            assert (got.data_ptr() == view.data_ptr()) == aliased
+            assert torch.equal(got, x[off:off + n]), (off, rows)
+            # nothing outside the view was written
+            assert torch.equal(src[:off], x[:off])
+            assert torch.equal(src[off + n:], x[off + n:])
+
+
+@pytest.mark.parametrize("dtype", MEMBW_DTYPES)
+@pytest.mark.parametrize("depth", range(2, membw.DMA_MAX_DEPTH + 1))
+def test_membw_dma_is_bitwise_at_every_depth(card, depth, dtype):
+    props = torch.cuda.get_device_properties(0)
+    for n in MEMBW_N:
+        x, _ = _membw_operands(n, dtype)
+        for rows in (None, 1, 3, 8, 64):
+            try:
+                membw.dma_plan(
+                    n, x.element_size(),
+                    rows or membw.default_chunk("dma", dtype), depth,
+                    props.multi_processor_count,
+                    props.shared_memory_per_multiprocessor,
+                    props.shared_memory_per_block_optin)
+            except ValueError:
+                with pytest.raises(ValueError, match="shared memory"):
+                    membw.step_dma(x, rows_per_chunk=rows, depth=depth)
+                continue
+            got = membw.step_dma(x, rows_per_chunk=rows, depth=depth)
+            torch.cuda.synchronize()
+            assert torch.equal(got, x), (n, rows)
+    # fewer chunks than slots on the card, and per CTA (depth - 1 chunks
+    # a CTA, the last one ragged)
+    x = _field((128 * (depth - 1),), dtype)
+    assert torch.equal(membw.step_dma(x, rows_per_chunk=1, depth=depth), x)
+    plan = membw.dma_plan(1, 4, 16, depth, props.multi_processor_count,
+                          props.shared_memory_per_multiprocessor,
+                          props.shared_memory_per_block_optin)
+    n = plan.per_sm * props.multi_processor_count * (depth - 1) * 16 * 128
+    x = _field((n - 128 * 8,), torch.float32)
+    assert torch.equal(membw.step_dma(x, rows_per_chunk=16, depth=depth), x)
+
+
 def test_membw_chunk_sets_the_grid_not_the_result(card):
     x, b = _membw_operands(MEMBW_N[0], torch.float32)
     ref = membw.step_chunked(x, b, 0.7, "triad")
@@ -136,6 +190,8 @@ def test_membw_chunk_sets_the_grid_not_the_result(card):
         assert torch.equal(membw.step_chunked(x, b, 0.7, "triad",
                                               rows_per_chunk=rows), ref)
         assert torch.equal(membw.step_stream(x, rows_per_chunk=rows), x)
+    for rows in (1, 2, 3, 7, 100):
+        assert torch.equal(membw.step_dma(x, rows_per_chunk=rows), x)
 
 
 def test_membw_wrappers_count_launches_and_check_arguments(card):

@@ -278,3 +278,77 @@ def test_wrappers_refuse_what_their_kernels_do_not_take():
     before = [w.launches for w in pmembw.WRAPPERS]
     pmembw.chained(x, x, 1.0, 0.0, "copy", "dma", 3)
     assert [w.launches for w in pmembw.WRAPPERS] == before
+
+
+#: the H100 SXM's figures (132 SMs; 228 KiB of shared memory an SM, 227
+#: KiB a CTA) and a smaller card's, for the dma launch plan
+CARDS = {
+    "h100": dict(sms=132, smem_per_sm=233472, smem_per_cta=232448),
+    "small": dict(sms=7, smem_per_sm=102400, smem_per_cta=101376),
+}
+#: (n, itemsize, rows_per_chunk, depth): the main path's, bfloat16's, a
+#: ragged last chunk, fewer chunks than slots on the card, the deepest
+#: ring, slots of one row
+PLAN_CASES = [
+    (1 << 26, 4, 32, 2), (1 << 26, 2, 64, 2), (1 << 26, 4, 64, 3),
+    (128 * 8 * 3 + 128, 4, 8, 3), (384, 4, 1, 4), (128, 2, 1, 8),
+    (1 << 20, 4, 16, 8), (1 << 20, 2, 3, 5), (4096 * 128 + 384, 4, 4, 2),
+]
+
+
+@pytest.mark.parametrize("card", list(CARDS))
+@pytest.mark.parametrize("case", PLAN_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_dma_plan_covers_every_chunk_once_and_fits_shared_memory(card, case):
+    n, itemsize, rows, depth = case
+    limits = CARDS[card]
+    plan = pmembw.dma_plan(n, itemsize, rows, depth, **limits)
+    nbytes = n * itemsize
+    assert plan.chunk_bytes == rows * 128 * itemsize
+    assert (plan.n_chunks - 1) * plan.chunk_bytes < nbytes
+    assert nbytes <= plan.n_chunks * plan.chunk_bytes
+    # each chunk goes to exactly one CTA, and CTAs differ by at most one
+    taken = sorted(c for b in range(plan.ctas) for c in plan.chunks_of(b))
+    assert taken == list(range(plan.n_chunks))
+    counts = [len(plan.chunks_of(b)) for b in range(plan.ctas)]
+    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+    # a ring fits a CTA, and per_sm of them (with the card's reserve) an
+    # SM, and one more would not
+    assert plan.ring_bytes == depth * plan.chunk_bytes
+    per_cta = (plan.ring_bytes + pmembw.DMA_BARRIER_BYTES
+               + pmembw.SMEM_RESERVED_PER_CTA)
+    assert plan.ring_bytes + pmembw.DMA_BARRIER_BYTES <= limits["smem_per_cta"]
+    assert 1 <= plan.per_sm <= pmembw.MAX_CTAS_PER_SM
+    assert plan.per_sm * per_cta <= limits["smem_per_sm"]
+    assert (plan.per_sm == pmembw.MAX_CTAS_PER_SM
+            or (plan.per_sm + 1) * per_cta > limits["smem_per_sm"])
+    assert plan.ctas == min(plan.n_chunks, limits["sms"] * plan.per_sm)
+
+
+@pytest.mark.parametrize("card", list(CARDS))
+def test_dma_plan_refuses_a_ring_that_does_not_fit_a_cta(card):
+    limits = CARDS[card]
+    rows = limits["smem_per_cta"] // (2 * 128 * 4) + 1
+    with pytest.raises(ValueError, match="shared memory a block can use"):
+        pmembw.dma_plan(1 << 20, 4, rows, 2, **limits)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("depth", range(2, pmembw.DMA_MAX_DEPTH + 1))
+def test_default_dma_slot_fits_the_h100_at_every_depth(dtype, depth):
+    """The dma arm's default slot takes every --depth on the H100."""
+    tdt = DTYPES[dtype][1]
+    rows = pmembw.default_chunk("dma", tdt)
+    itemsize = torch.empty((), dtype=tdt).element_size()
+    assert rows * 128 * itemsize == pmembw.DMA_DEFAULT_CHUNK_BYTES
+    plan = pmembw.dma_plan(1 << 26, itemsize, rows, depth, **CARDS["h100"])
+    assert plan.ctas >= CARDS["h100"]["sms"]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_default_copy_chunks_are_fixed_bytes_a_cta(dtype):
+    tdt = DTYPES[dtype][1]
+    itemsize = torch.empty((), dtype=tdt).element_size()
+    assert (pmembw.default_chunk("stream", tdt) * 128 * itemsize
+            == pmembw.STREAM_DEFAULT_CHUNK_BYTES)
+    assert pmembw.default_chunk("chunked", tdt) == pmembw.CHUNKED_DEFAULT_ROWS

@@ -28,20 +28,14 @@
 // 3.35 TB/s = 0.2404 ms (add, triad). The designs below keep many bytes in
 // flight per SM and touch every byte once.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
 #include <cstring>
+
+// the dtype codes, widen/narrow, and the mbarrier and TMA bulk-copy
+// primitives (shared with grid.cu and wave.cu)
+#include "staging.cuh"
 
 namespace {
 
-// dtype codes shared with tpu_comm_torch/kernels/tiling.py
-// KERNEL_DTYPE_CODES
-constexpr int kFloat32 = 0;
-constexpr int kBFloat16 = 1;
-constexpr int kFloat16 = 2;
 // op codes shared with tpu_comm_torch/kernels/membw.py OP_CODES
 constexpr int kCopy = 0;
 constexpr int kScale = 1;
@@ -52,29 +46,6 @@ constexpr int64_t kLanes = 128;
 constexpr int kThreads = 256;
 // 16-byte vectors a thread of the chunked kernels loads before it stores
 constexpr int kBatch = 4;
-
-// widen/narrow as in jacobi_stream.cu: each source builds into a library
-// of its own, named by a hash of that one file
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
-
-template <typename T>
-__device__ __forceinline__ T narrow(float v);
-template <>
-__device__ __forceinline__ float narrow<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ __half narrow<__half>(float v) {
-  return __float2half_rn(v);
-}
 
 template <typename T, int kOp>
 __device__ __forceinline__ T apply(T x, T b, float s) {
@@ -236,179 +207,277 @@ void launch_chunked(const void* x, const void* b, void* out, int64_t n,
 // _stream_once: the copy expressed as a degenerate stencil, so that copy
 // and stencil compare on the same pipeline code.
 //
-// This is the port's own 1D stencil kernel (jacobi1d_kernel in
-// jacobi_stream.cu) with the arithmetic removed: the same 256 threads, the
-// same grid derived from the chunk, the same grid-stride loop, the same
-// loads of u[i-1] and u[i+1] (wrapped at the ends), and out[i] = u[i].
+// Every cell still reads both of its neighbours, as the 1D stencil does
+// (the TPU kernel's neighbour fetches are DMAs driven by its BlockSpecs and
+// cannot be removed), and folds them into the stored bits under `keep`, a
+// mask the launcher always passes as 0: the compiler cannot know it, so
+// the loads stay (chip_smoke.py counts them in the machine code), and the
+// stored value is u[i] bit for bit.
 //
-// The TPU kernel's neighbour fetches are DMAs driven by its BlockSpecs and
-// cannot be removed; a load whose value is unused here would be deleted by
-// the compiler. So both neighbour values are folded into the stored bits
-// under `keep`, a mask the launcher always passes as 0: the compiler cannot
-// know it, so both loads stay, and the stored value is u[i] bit for bit.
+// What bounds it: bytes, 2 N itemsize (536,870,912 B at N = 2^26 float32:
+// 0.1603 ms at 3.35 TB/s). The first form (one cell a thread an iteration, three 4-byte loads,
+// no __restrict__, so each store was kept ahead of the next cell's loads:
+// one cell's loads in flight a thread) took 0.2303 ms on an H100, 1.29
+// times copy_.
+// This design keeps many bytes in flight a thread:
+//   - vector form (both pointers 16-byte aligned): a thread takes 16-byte
+//     vectors and issues kBatch of them before its first store, as
+//     chunk_pass does. A warp holds runs of 32 consecutive vectors. Inside
+//     a vector a cell's neighbours are the vector's own cells; the
+//     vector's two outer neighbours come from the lanes beside it
+//     (__shfl_up_sync / __shfl_down_sync, the lane roll of the carry form
+//     in jacobi_stream.cu), and only at a run's two edges (lane 0's
+//     previous cell, the last lane's next) are they loaded from memory,
+//     wrapped at the ends, together with the vectors. Cells are handled
+//     as 32-bit words: in 2-byte dtypes a word holds two cells and its
+//     neighbour words are funnel shifts of the words beside it;
+//   - scalar form (an offset view off the 16-byte grid): kCells cells a
+//     thread, each cell's three loads issued before the first store;
+//   - out != u: __restrict__ pointers and non-coherent loads
+//     (membw_stream). In place (the aliased knob, u == out): neither
+//     (membw_stream_inplace): a neighbour load may race another thread's
+//     store, value-safe only because that store writes the bits already
+//     there.
+// The copy moves bits, so the kernels are instantiated on the cell's
+// width (uint32_t for float32, uint16_t for bfloat16 and float16). A CTA
+// takes one chunk of rows_per_chunk rows of 128 cells: the chunk sets the
+// grid, never the result.
 // ---------------------------------------------------------------------------
-template <typename T>
-struct Bits;
-template <>
-struct Bits<float> {
-  using type = uint32_t;
-};
-template <>
-struct Bits<__nv_bfloat16> {
-  using type = uint16_t;
-};
-template <>
-struct Bits<__half> {
-  using type = uint16_t;
-};
+// cells a thread of the scalar form loads before it stores
+constexpr int kCells = 4;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    membw_stream(const T* u, T* out, int64_t n, uint32_t keep) {
-  using B = typename Bits<T>::type;
-  const B* ub = reinterpret_cast<const B*>(u);
-  B* ob = reinterpret_cast<B*>(out);
-  const B mask = static_cast<B>(keep);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
-    const int64_t ip = (i == 0) ? n - 1 : i - 1;
-    const int64_t in = (i == n - 1) ? 0 : i + 1;
-    ob[i] = ub[i] ^ ((ub[ip] ^ ub[in]) & mask);
+template <bool kNc, typename B>
+__device__ __forceinline__ B ld(const B* p) {
+  if constexpr (kNc) {
+    return __ldg(p);
+  } else {
+    return *p;
   }
 }
 
-template <typename T>
+template <typename B, bool kVec, bool kNc>
+__device__ __forceinline__ void stream_pass(const B* u, B* out, int64_t n,
+                                            uint32_t keep,
+                                            int64_t per_block) {
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t end = begin + per_block < n ? begin + per_block : n;
+  if constexpr (kVec) {
+    constexpr int kW = 16 / sizeof(B);  // cells a vector
+    constexpr int64_t kStep = static_cast<int64_t>(kThreads) * kW;
+    const uint32_t mask = sizeof(B) == 4 ? keep : (keep & 0xffffu) * 0x10001u;
+    const int lane = threadIdx.x % 32;
+    // the loop bound is the same for a warp's lanes, so the warp stays
+    // whole for the shuffles
+    for (int64_t w0 = begin + static_cast<int64_t>(threadIdx.x - lane) * kW;
+         w0 < end; w0 += kStep * kBatch) {
+      uint4 v[kBatch];
+      uint32_t prev_cell[kBatch];
+      uint32_t next_cell[kBatch];
+#pragma unroll
+      for (int r = 0; r < kBatch; ++r) {
+        const int64_t i = w0 + r * kStep + lane * kW;
+        v[r] = make_uint4(0u, 0u, 0u, 0u);
+        prev_cell[r] = 0u;
+        next_cell[r] = 0u;
+        if (i < end) {
+          v[r] = ld<kNc>(reinterpret_cast<const uint4*>(u + i));
+          // the run's edges: from memory, wrapped at the ends
+          if (lane == 0) prev_cell[r] = ld<kNc>(u + (i == 0 ? n - 1 : i - 1));
+          if (lane == 31 || i + kW >= end) {
+            next_cell[r] = ld<kNc>(u + (i + kW == n ? 0 : i + kW));
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kBatch; ++r) {
+        const int64_t i = w0 + r * kStep + lane * kW;
+        // w[0] the word before the vector, w[1..4] its words, w[5] the
+        // word after; only the cell beside the vector is read of each
+        uint32_t w[6] = {0u, v[r].x, v[r].y, v[r].z, v[r].w, 0u};
+        w[0] = __shfl_up_sync(0xffffffffu, w[4], 1);
+        w[5] = __shfl_down_sync(0xffffffffu, w[1], 1);
+        if (i >= end) continue;
+        if (lane == 0) {
+          w[0] = sizeof(B) == 4 ? prev_cell[r] : prev_cell[r] << 16;
+        }
+        if (lane == 31 || i + kW >= end) w[5] = next_cell[r];
+        uint32_t o[4];
+#pragma unroll
+        for (int j = 1; j <= 4; ++j) {
+          uint32_t nb;
+          if constexpr (sizeof(B) == 4) {
+            nb = w[j - 1] ^ w[j + 1];
+          } else {
+            // the words of the cells' left and right neighbours
+            nb = __funnelshift_r(w[j - 1], w[j], 16) ^
+                 __funnelshift_r(w[j], w[j + 1], 16);
+          }
+          o[j - 1] = w[j] ^ (nb & mask);
+        }
+        *reinterpret_cast<uint4*>(out + i) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+  } else {
+    const B mask = static_cast<B>(keep);
+    for (int64_t i0 = begin + threadIdx.x; i0 < end;
+         i0 += static_cast<int64_t>(kThreads) * kCells) {
+      B self[kCells];
+      B prev[kCells];
+      B next[kCells];
+#pragma unroll
+      for (int r = 0; r < kCells; ++r) {
+        const int64_t i = i0 + r * kThreads;
+        if (i < end) {
+          self[r] = ld<kNc>(u + i);
+          prev[r] = ld<kNc>(u + (i == 0 ? n - 1 : i - 1));
+          next[r] = ld<kNc>(u + (i == n - 1 ? 0 : i + 1));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kCells; ++r) {
+        const int64_t i = i0 + r * kThreads;
+        if (i < end) out[i] = self[r] ^ ((prev[r] ^ next[r]) & mask);
+      }
+    }
+  }
+}
+
+template <typename B, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    membw_stream(const B* __restrict__ u, B* __restrict__ out, int64_t n,
+                 uint32_t keep, int64_t per_block) {
+  stream_pass<B, kVec, true>(u, out, n, keep, per_block);
+}
+
+template <typename B, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    membw_stream_inplace(const B* u, B* out, int64_t n, uint32_t keep,
+                         int64_t per_block) {
+  stream_pass<B, kVec, false>(u, out, n, keep, per_block);
+}
+
+template <typename B>
 void launch_stream(const void* u, void* out, int64_t n, int rows,
                    cudaStream_t st) {
-  // launch1d's grid in jacobi_stream.cu
-  const unsigned blocks = grid_for(n, static_cast<int64_t>(rows) * kLanes);
-  membw_stream<T><<<blocks, kThreads, 0, st>>>(
-      static_cast<const T*>(u), static_cast<T*>(out), n, 0u);
+  const int64_t per_block = static_cast<int64_t>(rows) * kLanes;
+  const unsigned blocks = grid_for(n, per_block);
+  auto* us = static_cast<const B*>(u);
+  auto* os = static_cast<B*>(out);
+  const bool vec = aligned16(u) && aligned16(out);
+  if (u == out) {
+    if (vec) {
+      membw_stream_inplace<B, true><<<blocks, kThreads, 0, st>>>(
+          us, os, n, 0u, per_block);
+    } else {
+      membw_stream_inplace<B, false><<<blocks, kThreads, 0, st>>>(
+          us, os, n, 0u, per_block);
+    }
+  } else if (vec) {
+    membw_stream<B, true><<<blocks, kThreads, 0, st>>>(us, os, n, 0u,
+                                                       per_block);
+  } else {
+    membw_stream<B, false><<<blocks, kThreads, 0, st>>>(us, os, n, 0u,
+                                                        per_block);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // dma: replaces tpu_comm/bench/membw.py _dma_copy_kernel, run by
 // _dma_copy_once: the copy pipelined by hand through `depth` buffer slots.
 //
-// The TPU kernel is one sequential loop over every chunk (its grid runs in
-// order on one core). Here each CTA streams its own contiguous range of
-// chunks through its own ring of `depth` shared-memory slots, and the grid
-// holds as many CTAs as fit on the card at once, so every SM keeps
-// depth x chunk bytes in flight. One thread drives the ring:
-//   - a slot is filled by a TMA bulk copy (cp.async.bulk global -> shared),
-//     which completes on the slot's mbarrier (expect_tx bytes, phase bit
-//     (k / depth) & 1 for the k-th chunk of the CTA);
-//   - it is drained by a bulk store (cp.async.bulk shared -> global) in its
-//     own bulk group;
-//   - it is refilled only after that store has finished READING shared
-//     memory (cp.async.bulk.wait_group.read): the race the TPU kernel's
-//     docstring guards against. The refill of chunk k-1's slot waits for
-//     all stores but chunk k's, so chunk k's store stays in flight while
-//     the next load is issued.
-// The prologue fills min(depth, chunks of the CTA) slots; the epilogue waits
-// for every store to complete before the CTA (and its shared memory) ends.
-// Bulk copies need 16-byte aligned addresses and sizes that are multiples of
-// 16 B: a chunk is rows x 256 B or more, and the launcher refuses a
-// misaligned pointer.
+// Every byte moves device memory -> a shared-memory slot (a TMA bulk copy,
+// cp.async.bulk global -> shared, completing on the slot's `full`
+// mbarrier) -> device memory (a bulk store, shared -> global, in its own
+// bulk group), through a ring of `depth` slots a CTA.
+//
+// What bounds it: bytes, 2 N itemsize (536,870,912 B at N = 2^26 float32:
+// 0.1603 ms at 3.35 TB/s). The first form drove the ring from one thread, which waited for chunk
+// k's load, issued its store, waited for chunk k-1's store to read its
+// slot and only then refilled that slot: at depth 2 at most one load was
+// in flight a CTA, with a gap at each turn of the ring (0.1940 ms on an
+// H100, 1.08 times copy_). This design decouples the two sides:
+//   - a producer lane (warp 0) issues a slot's load as soon as the slot is
+//     free (its `empty` mbarrier), so up to `depth` loads are in flight;
+//   - a consumer lane (warp 1) waits on `full`, issues the store, waits
+//     until that store has READ the slot (cp.async.bulk.wait_group.read:
+//     the race the TPU kernel's docstring guards against) and frees it on
+//     `empty`. Neither side blocks a load behind a store or a store
+//     behind a load of another slot.
+// Chunks go to CTAs in turn (CTA b takes chunks b, b + grid, ...), so
+// CTAs differ by at most one chunk and the last chunks spread over the
+// SMs. The wrapper's launch plan (kernels/membw.py dma_plan) sets the
+// grid: as many CTAs as the ring's shared memory lets reside at once.
+// Measured on an H100 against this form and not kept (PERF.md §6):
+// contiguous ranges a CTA (slower by 4-11%), L2 evict-first hints, a
+// prefetch to L2 one ring ahead (35% slower), a slot freed one store
+// later, a chunk moved by four bulk copies, pieces sized so every CTA
+// takes as many, fewer CTAs an SM. What is left against copy_ is a fixed
+// ~3 us a launch (the ring's fill and drain) and ~3.6% of rate.
+// Bulk copies need 16-byte aligned addresses and sizes that are multiples
+// of 16 B: a chunk is rows x 256 B or more, and misaligned pointers are
+// refused.
 // ---------------------------------------------------------------------------
 constexpr int kMaxDepth = 8;
+constexpr int kDmaThreads = 64;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
                                            uint32_t bytes) {
   asm volatile(
       "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
           dst),
-      "r"(src), "r"(bytes)
+      "r"(smem_u32(src)), "r"(bytes)
       : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(kDmaThreads)
     membw_dma(const uint8_t* x, uint8_t* out, int64_t nbytes,
               int64_t chunk_bytes, int64_t n_chunks, int depth) {
   extern __shared__ __align__(128) uint8_t ring[];
-  __shared__ __align__(8) uint64_t bars[kMaxDepth];
-  if (threadIdx.x != 0) return;
-  const int64_t c0 = n_chunks * blockIdx.x / gridDim.x;
-  const int64_t m = n_chunks * (blockIdx.x + 1) / gridDim.x - c0;
-  for (int slot = 0; slot < depth; ++slot) {
-    mbar_init(smem_u32(&bars[slot]), 1);
+  __shared__ __align__(8) uint64_t full[kMaxDepth];
+  __shared__ __align__(8) uint64_t empty[kMaxDepth];
+  if (threadIdx.x == 0) {
+    for (int slot = 0; slot < depth; ++slot) {
+      mbar_init(&full[slot], 1);
+      mbar_init(&empty[slot], 1);
+    }
+    mbar_fence_init();
   }
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-
-  auto bytes_of = [&](int64_t k) {
-    const int64_t left = nbytes - (c0 + k) * chunk_bytes;
+  __syncthreads();
+  auto bytes_of = [&](int64_t c) {
+    const int64_t left = nbytes - c * chunk_bytes;
     return static_cast<uint32_t>(left < chunk_bytes ? left : chunk_bytes);
   };
-  auto load = [&](int64_t k) {
-    const int slot = static_cast<int>(k % depth);
-    const uint32_t bar = smem_u32(&bars[slot]);
-    const uint32_t bytes = bytes_of(k);
-    mbar_expect_tx(bar, bytes);
-    bulk_load(smem_u32(ring + slot * chunk_bytes),
-              x + (c0 + k) * chunk_bytes, bytes, bar);
-  };
-
-  for (int64_t k = 0; k < depth && k < m; ++k) {  // prologue
-    load(k);
-  }
-  for (int64_t k = 0; k < m; ++k) {
-    const int slot = static_cast<int>(k % depth);
-    mbar_wait(smem_u32(&bars[slot]), static_cast<uint32_t>((k / depth) & 1));
-    bulk_store(out + (c0 + k) * chunk_bytes,
-               smem_u32(ring + slot * chunk_bytes), bytes_of(k));
-    const int64_t next = k - 1 + depth;  // goes into chunk k-1's slot
-    if (k >= 1 && next < m) {
-      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-      load(next);
+  // the CTA's k-th chunk, c = blockIdx.x + k * gridDim.x, goes into slot
+  // k % depth: the (k / depth)-th phase of its barriers
+  if (threadIdx.x == 0) {  // producer
+    int64_t k = 0;
+    for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x, ++k) {
+      const int slot = static_cast<int>(k % depth);
+      if (k >= depth) {  // the slot's previous chunk has been stored
+        mbar_wait(&empty[slot], static_cast<uint32_t>((k / depth - 1) & 1));
+      }
+      const uint32_t bytes = bytes_of(c);
+      mbar_arrive(&full[slot], bytes);
+      bulk_load(ring + slot * chunk_bytes,
+                reinterpret_cast<uintptr_t>(x + c * chunk_bytes), bytes,
+                &full[slot]);
     }
+  } else if (threadIdx.x == 32) {  // consumer
+    int64_t k = 0;
+    for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x, ++k) {
+      const int slot = static_cast<int>(k % depth);
+      mbar_wait(&full[slot], static_cast<uint32_t>((k / depth) & 1));
+      bulk_store(out + c * chunk_bytes, ring + slot * chunk_bytes,
+                 bytes_of(c));
+      // the store has read the slot: it may be refilled
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      mbar_arrive(&empty[slot], 0);
+    }
+    // every store complete before the CTA's shared memory is freed
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
-  // epilogue: every store complete before the CTA's shared memory is freed
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 int itemsize_of(int dtype) {
@@ -457,31 +526,24 @@ int tc_membw_chunked(const void* x, const void* b, void* out, int64_t n,
 
 int tc_membw_stream(const void* x, void* out, int64_t n, int dtype,
                     int rows_per_chunk, void* stream) {
-  if (n < kLanes || n % kLanes != 0 || rows_per_chunk < 1) {
+  const int itemsize = itemsize_of(dtype);
+  if (itemsize == 0 || n < kLanes || n % kLanes != 0 || rows_per_chunk < 1) {
     return cudaErrorInvalidValue;
   }
   auto st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      launch_stream<float>(x, out, n, rows_per_chunk, st);
-      break;
-    case kBFloat16:
-      launch_stream<__nv_bfloat16>(x, out, n, rows_per_chunk, st);
-      break;
-    case kFloat16:
-      launch_stream<__half>(x, out, n, rows_per_chunk, st);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+  if (itemsize == 4) {
+    launch_stream<uint32_t>(x, out, n, rows_per_chunk, st);
+  } else {
+    launch_stream<uint16_t>(x, out, n, rows_per_chunk, st);
   }
   return cudaGetLastError();
 }
 
 int tc_membw_dma(const void* x, void* out, int64_t n, int dtype,
-                 int rows_per_chunk, int depth, void* stream) {
+                 int rows_per_chunk, int depth, int ctas, void* stream) {
   const int itemsize = itemsize_of(dtype);
   if (itemsize == 0 || n < kLanes || n % kLanes != 0 || rows_per_chunk < 1 ||
-      depth < 2 || depth > kMaxDepth) {
+      depth < 2 || depth > kMaxDepth || ctas < 1) {
     return cudaErrorInvalidValue;
   }
   if (!aligned16(x) || !aligned16(out)) return cudaErrorMisalignedAddress;
@@ -490,17 +552,13 @@ int tc_membw_dma(const void* x, void* out, int64_t n, int dtype,
   const int64_t ring_bytes = chunk_bytes * depth;
   int dev = 0;
   int optin = 0;
-  int sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
   if (err != cudaSuccess) return err;
-  if (ring_bytes + static_cast<int64_t>(sizeof(uint64_t)) * kMaxDepth >
+  if (ring_bytes + static_cast<int64_t>(2 * sizeof(uint64_t)) * kMaxDepth >
       optin) {
     return cudaErrorInvalidValue;
   }
@@ -508,18 +566,10 @@ int tc_membw_dma(const void* x, void* out, int64_t n, int dtype,
   err = cudaFuncSetAttribute(membw_dma,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, membw_dma, 32,
-                                                      smem);
-  if (err != cudaSuccess) return err;
   const int64_t nbytes = n * itemsize;
-  const int64_t n_chunks = (nbytes + chunk_bytes - 1) / chunk_bytes;
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  const unsigned grid =
-      static_cast<unsigned>(n_chunks < resident ? n_chunks : resident);
-  membw_dma<<<grid, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  membw_dma<<<ctas, kDmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out), nbytes,
-      chunk_bytes, n_chunks, depth);
+      chunk_bytes, (nbytes + chunk_bytes - 1) / chunk_bytes, depth);
   return cudaGetLastError();
 }
 

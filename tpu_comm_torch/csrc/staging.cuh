@@ -1,7 +1,8 @@
 // Shared by csrc/grid.cu and csrc/wave.cu: the dtype helpers, the mbarrier
 // and TMA bulk-copy primitives, and the staging of one row range of the
-// field into shared memory. tpu_comm_torch/kernels/_build.py hashes every
-// csrc/*.cuh into each library's name, so an edit here rebuilds both.
+// field into shared memory (csrc/membw.cu takes the helpers and the
+// primitives). tpu_comm_torch/kernels/_build.py hashes every csrc/*.cuh
+// into each library's name, so an edit here rebuilds them all.
 //
 // Staging a row range. The TPU kernels copy a window with
 // pltpu.make_async_copy and wait on its DMA semaphore; here the copy is a

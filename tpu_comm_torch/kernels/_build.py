@@ -70,7 +70,7 @@ SIGNATURES = {
     "tc_pack_faces": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tc_membw_chunked": (_P, _P, _P, _N, _I, _I, ctypes.c_float, _I, _P),
     "tc_membw_stream": (_P, _P, _N, _I, _I, _P),
-    "tc_membw_dma": (_P, _P, _N, _I, _I, _I, _P),
+    "tc_membw_dma": (_P, _P, _N, _I, _I, _I, _I, _P),
 }
 
 

@@ -12,11 +12,14 @@ the result.
   it alike.
 - ``step_chunked`` — wrapper of ``membw_unary`` (copy, scale) and
   ``membw_binary`` (add, triad) in ``csrc/membw.cu`` (JAX ``pallas``).
-- ``step_stream``  — wrapper of ``membw_stream``: the copy as the 1D
-  stencil kernel with its arithmetic removed (JAX ``pallas-stream``).
+- ``step_stream``  — wrapper of ``membw_stream`` (``membw_stream_inplace``
+  when aliased): the copy as a degenerate 1D stencil, every cell's two
+  neighbour loads kept and folded in under a zero mask (JAX
+  ``pallas-stream``).
 - ``step_dma``     — wrapper of ``membw_dma``: the copy pipelined by hand
-  through ``depth`` shared-memory slots with TMA bulk copies and
-  mbarriers (JAX ``pallas-dma``).
+  through ``depth`` shared-memory slots with TMA bulk copies, a producer
+  and a consumer lane on ``full``/``empty`` mbarriers (JAX
+  ``pallas-dma``); :func:`dma_plan` sets its grid.
 
 Each wrapper sends a CPU tensor to its plain version (``step_plain`` for
 the chunked ops, ``copy_plain`` for the copies) and a CUDA tensor to its
@@ -25,10 +28,11 @@ kernel, or raises; ``<wrapper>.launches`` counts kernel launches.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from tpu_comm_torch.bench import MEMBW_IMPLS, MEMBW_OPS
-from tpu_comm_torch.kernels.jacobi1d import STREAM_DEFAULT_ROWS
 from tpu_comm_torch.kernels.tiling import (
     DEFAULT_DMA_DEPTH,
     KERNEL_DTYPE_CODES,
@@ -44,11 +48,65 @@ OP_CODES = {"copy": 0, "scale": 1, "add": 2, "triad": 3}
 BINARY_OPS = ("add", "triad")
 #: default rows of 128 elements per CUDA block of the chunked kernels
 CHUNKED_DEFAULT_ROWS = 32
-#: default bytes per slot of the dma ring (64 KiB of shared memory per CTA
-#: at depth 2, so three CTAs fit on an SM)
-DMA_DEFAULT_CHUNK_BYTES = 32 * 1024
+#: default bytes a CTA of the stream copy takes: two 16-byte vectors a
+#: thread in float32, four in bfloat16/float16 (the fastest of 4-256 KiB
+#: on the H100, PERF.md §6; the 1D stencil's own 8-row chunk gives the
+#: 256 threads one float32 vector each, and the CTAs' launches then pace
+#: the copy)
+STREAM_DEFAULT_CHUNK_BYTES = 8 * 1024
+#: default bytes per slot of the dma ring: as fast on the H100 as 8-64 KiB
+#: slots (phase 5's sweep, PERF.md §6), and the one default whose ring
+#: fits a CTA at every depth up to DMA_MAX_DEPTH
+DMA_DEFAULT_CHUNK_BYTES = 16 * 1024
 #: the dma ring's slot count bounds (kMaxDepth in csrc/membw.cu)
 DMA_MAX_DEPTH = 8
+#: the dma kernel's static shared memory: a ``full`` and an ``empty``
+#: mbarrier of 8 bytes per slot of the deepest ring
+DMA_BARRIER_BYTES = 2 * 8 * DMA_MAX_DEPTH
+#: shared memory the card reserves for each resident CTA (1 KiB on sm_90,
+#: cudaDevAttrReservedSharedMemoryPerBlock)
+SMEM_RESERVED_PER_CTA = 1024
+#: resident CTAs an SM holds at most (sm_90)
+MAX_CTAS_PER_SM = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class DmaPlan:
+    """The dma kernel's launch: ``ctas`` CTAs, each with a ring of
+    ``ring_bytes`` (``depth`` slots of ``chunk_bytes``); CTA ``b`` takes
+    chunks ``b, b + ctas, ...`` of the ``n_chunks`` (:meth:`chunks_of`).
+    ``per_sm`` CTAs fit on an SM at once."""
+
+    chunk_bytes: int
+    n_chunks: int
+    ring_bytes: int
+    per_sm: int
+    ctas: int
+
+    def chunks_of(self, cta: int) -> range:
+        return range(cta, self.n_chunks, self.ctas)
+
+
+def dma_plan(n: int, itemsize: int, rows_per_chunk: int, depth: int,
+             sms: int, smem_per_sm: int, smem_per_cta: int) -> DmaPlan:
+    """The dma kernel's grid for ``n`` elements of ``itemsize`` bytes in
+    slots of ``rows_per_chunk`` rows: as many CTAs as the ring's shared
+    memory lets reside on the ``sms`` SMs at once (``smem_per_sm`` bytes
+    an SM, ``smem_per_cta`` at most a CTA), never more than there are
+    chunks. Raises ValueError when one ring does not fit a CTA."""
+    chunk_bytes = rows_per_chunk * LANES * itemsize
+    ring = depth * chunk_bytes
+    if ring + DMA_BARRIER_BYTES > smem_per_cta:
+        raise ValueError(
+            f"the dma ring ({depth} slots x {rows_per_chunk} rows = {ring} "
+            f"B) exceeds the {smem_per_cta} B of shared memory a block can "
+            "use"
+        )
+    per_sm = min(MAX_CTAS_PER_SM, smem_per_sm // (
+        ring + DMA_BARRIER_BYTES + SMEM_RESERVED_PER_CTA))
+    n_chunks = -(-n * itemsize // chunk_bytes)
+    ctas = min(n_chunks, sms * max(per_sm, 1))
+    return DmaPlan(chunk_bytes, n_chunks, ring, per_sm, ctas)
 
 
 def check_op(op: str) -> None:
@@ -58,13 +116,14 @@ def check_op(op: str) -> None:
 
 def default_chunk(impl: str, dtype: torch.dtype) -> int:
     """The rows per chunk a kernel arm uses when the caller passes none:
-    the stream arm takes the 1D stencil kernel's own grid."""
-    if impl == "stream":
-        return STREAM_DEFAULT_ROWS
-    if impl == "dma":
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        return DMA_DEFAULT_CHUNK_BYTES // (LANES * itemsize)
-    return CHUNKED_DEFAULT_ROWS
+    a fixed number of bytes for the copy arms, a fixed number of rows for
+    the chunked kernels."""
+    chunk_bytes = {"stream": STREAM_DEFAULT_CHUNK_BYTES,
+                   "dma": DMA_DEFAULT_CHUNK_BYTES}.get(impl)
+    if chunk_bytes is None:
+        return CHUNKED_DEFAULT_ROWS
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return chunk_bytes // (LANES * itemsize)
 
 
 def _chunk(rows_per_chunk: int | None, impl: str, dtype: torch.dtype) -> int:
@@ -133,7 +192,8 @@ def step_chunked(x: torch.Tensor, b: torch.Tensor | None, s: float, op: str,
 def step_stream(x: torch.Tensor, rows_per_chunk: int | None = None,
                 out: torch.Tensor | None = None,
                 aliased: bool = False) -> torch.Tensor:
-    """One copy through the 1D stencil kernel's loads and grid. With
+    """One copy as a degenerate 1D stencil: every cell's two neighbours
+    are read and folded in under a zero mask, one CTA a chunk. With
     ``aliased`` the copy runs in place (value-safe: a neighbour read
     that races a write sees the same bits either way)."""
     out = check_membw_args(x, out, aliased)
@@ -141,8 +201,8 @@ def step_stream(x: torch.Tensor, rows_per_chunk: int | None = None,
     if x.device.type == "cpu":
         return copy_plain(x, out)
     _require_cuda(x)
-    launch_kernel("tc_membw_stream", x, x.data_ptr(), out.data_ptr(), x.numel(),
-            KERNEL_DTYPE_CODES[x.dtype], rows)
+    launch_kernel("tc_membw_stream", x, x.data_ptr(), out.data_ptr(),
+                  x.numel(), KERNEL_DTYPE_CODES[x.dtype], rows)
     step_stream.launches += 1
     return out
 
@@ -166,16 +226,13 @@ def step_dma(x: torch.Tensor, rows_per_chunk: int | None = None,
     if x.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("the dma copy needs 16-byte aligned tensors (TMA "
                          "bulk copies); got an offset view")
-    ring = depth * rows * LANES * x.element_size()
-    limit = torch.cuda.get_device_properties(
-        x.device).shared_memory_per_block_optin
-    if ring + 8 * DMA_MAX_DEPTH > limit:
-        raise ValueError(
-            f"the dma ring ({depth} slots x {rows} rows = {ring} B) exceeds "
-            f"the {limit} B of shared memory a block can use"
-        )
+    props = torch.cuda.get_device_properties(x.device)
+    plan = dma_plan(x.numel(), x.element_size(), rows, depth,
+                    props.multi_processor_count,
+                    props.shared_memory_per_multiprocessor,
+                    props.shared_memory_per_block_optin)
     launch_kernel("tc_membw_dma", x, x.data_ptr(), out.data_ptr(), x.numel(),
-            KERNEL_DTYPE_CODES[x.dtype], rows, depth)
+                  KERNEL_DTYPE_CODES[x.dtype], rows, depth, plan.ctas)
     step_dma.launches += 1
     return out
 
