@@ -294,11 +294,38 @@ STREAM_FORMS = [f"{name}<{w}, {form}>"
                 for name in ("membw_stream", "membw_stream_inplace")
                 for w in STREAM_WIDTHS.values()
                 for form in ("vector", "scalar")]
+#: the element types of the chunked kernels' instantiations (their
+#: mangled template argument: float, __nv_bfloat16, __half)
+CHUNKED_TYPES = {"f": "float", "13__nv_bfloat16": "__nv_bfloat16",
+                 "6__half": "__half"}
+#: every membw_unary/membw_binary instantiation csrc/membw.cu holds: each
+#: op it serves, each element type, vector and scalar form (one form
+#: serves in-place and out-of-place calls)
+CHUNKED_FORMS = [f"{name}<{t}, {op}, {form}>"
+                 for name, ops in (("membw_unary", ("copy", "scale")),
+                                   ("membw_binary", ("add", "triad")))
+                 for op in ops
+                 for t in CHUNKED_TYPES.values()
+                 for form in ("vector", "scalar")]
 #: rounds of the membw copies timed in turns (a kernel's time is their
 #: median)
 MEMBW_ROUNDS = 3
 #: the stream copy's chunk sweep of phase 5, KiB a CTA (float32)
 STREAM_SWEEP_KIB = (4, 16, 32)
+#: the chunked copy's, scale's and triad's chunk sweep of phase 5, KiB of
+#: each operand a CTA (float32)
+CHUNKED_SWEEP_KIB = (4, 8, 16, 32, 64)
+#: a fixed row count a CTA that phase 5 times beside the chunked kernels'
+#: default in every dtype: the grid their first form took (16 KiB of each
+#: operand in float32, 8 KiB in bfloat16)
+CHUNKED_FIXED_ROWS = 32
+#: op -> the one PyTorch call its chunked kernel is timed beside
+MEMBW_CALLS = {
+    "copy": "copy_",
+    "scale": "torch.mul(x, s, out=dst)",
+    "add": "torch.add(x, b, out=dst)",
+    "triad": "torch.add(b, x, alpha=s, out=dst)",
+}
 #: the dma ring's sweep of phase 5: slot KiB x depth (float32; a ring that
 #: does not fit a CTA is skipped)
 DMA_SWEEP = [(kib, depth) for kib in (8, 16, 32, 64) for depth in (2, 3, 4)]
@@ -1256,21 +1283,31 @@ def check_membw(torch) -> dict:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             x = random_field(torch, (n,), dtype, seed=20)
             b = random_field(torch, (n,), dtype, seed=21)
+            # the default, an odd and a swept chunk (64 KiB a CTA: several
+            # batches a thread), each form out of place and in place; the
+            # vector form on the tensors, the scalar form on views off the
+            # 16-byte grid
+            swept = CHUNKED_SWEEP_KIB[-1] * 1024 // (128 * x.element_size())
             for op in ("copy", "scale", "add", "triad"):
                 name = membw_kernel_of(op, "chunked")
                 want = membw.step_plain(x, b, MEMBW_S, op)
                 for aliased in (False, True):
-                    for rows in (None, MEMBW_ODD_CHUNK):
+                    for rows, off in ((None, 0), (MEMBW_ODD_CHUNK, 0),
+                                      (swept, 0), (None, 1),
+                                      (MEMBW_ODD_CHUNK, 1)):
                         src = x.clone() if aliased else x
-                        got = membw.step_chunked(src, b, MEMBW_S, op, rows,
-                                                 aliased)
-                        if aliased and got.data_ptr() != src.data_ptr():
+                        view = src[off:off + n - 128] if off else src
+                        got = membw.step_chunked(
+                            view, b[off:off + n - 128] if off else b,
+                            MEMBW_S, op, rows, aliased)
+                        if aliased and got.data_ptr() != view.data_ptr():
                             fail(f"{name} aliased did not write in place")
-                        _hold(torch, name, got, want, errs,
-                              f"{op} n={n} {dtype} aliased={aliased} "
-                              f"chunk={rows}")
+                        _hold(torch, name, got,
+                              want[off:off + n - 128] if off else want,
+                              errs, f"{op} n={n} {dtype} aliased={aliased} "
+                              f"chunk={rows} offset={off}")
                         cases[name] += 1
-                        del src, got
+                        del src, view, got
                 del want
             want = membw.copy_plain(x)
             # the stream copy's forms: vector (16-byte aligned), scalar (an
@@ -1355,16 +1392,8 @@ def check_stream_loads(libs) -> None:
     narrower ones)."""
     import re
 
-    from tpu_comm_torch.kernels import _build
-
-    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(tool), "-sass", libs["membw"]._name], capture_output=True,
-        text=True, timeout=120, check=True,
-    ).stdout
     loads = {}
-    for part in sass.split("Function : ")[1:]:
-        fn = part.split(None, 1)[0]
+    for fn, part in _sass_functions(libs, "membw"):
         # Itanium mangling: membw_stream[_inplace]I<j|t>Lb<0|1>E
         m = re.search(r"(membw_stream(?:_inplace)?)I([jt])Lb([01])E", fn)
         if m is None:
@@ -1389,6 +1418,61 @@ def check_stream_loads(libs) -> None:
             lost = got["ldg"] < 3
         if lost:
             fail(f"{form} lost its neighbour loads: {got}")
+
+
+def _sass_functions(libs, lib: str):
+    """``(mangled name, machine code)`` of every kernel in library
+    ``lib``, from ``cuobjdump -sass``."""
+    from tpu_comm_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(tool), "-sass", libs[lib]._name], capture_output=True,
+        text=True, timeout=120, check=True,
+    ).stdout
+    for part in sass.split("Function : ")[1:]:
+        yield part.split(None, 1)[0], part
+
+
+def check_chunked_access(libs) -> None:
+    """The chunked kernels' instantiations are exactly
+    :data:`CHUNKED_FORMS`; in their machine code every vector form keeps
+    128-bit global loads and stores (``LDG...128``, ``STG...128``), and
+    no form loads through the non-coherent path (``LDG...CONSTANT``): each
+    serves in-place calls, where ``out`` is ``x``."""
+    import re
+
+    ops = ("copy", "scale", "add", "triad")
+    found = {}
+    for fn, part in _sass_functions(libs, "membw"):
+        m = re.search(r"(membw_(?:unary|binary))"
+                      r"I(f|13__nv_bfloat16|6__half)Li([0-3])ELb([01])E", fn)
+        if m is None:
+            if "membw_unary" in fn or "membw_binary" in fn:
+                fail(f"unexpected chunked instantiation {fn}")
+            continue
+        name, t, op, vec = m.groups()
+        form = (f"{name}<{CHUNKED_TYPES[t]}, {ops[int(op)]}, "
+                f"{'vector' if vec == '1' else 'scalar'}>")
+        loads = re.findall(r"\bLDG(?:\.[A-Z0-9_]+)*", part)
+        stores = re.findall(r"\bSTG(?:\.[A-Z0-9_]+)*", part)
+        found[form] = {
+            "ldg": len(loads), "ldg_128": sum(".128" in i for i in loads),
+            "ldg_nc": sum(".CONSTANT" in i for i in loads),
+            "stg": len(stores), "stg_128": sum(".128" in i for i in stores),
+        }
+    emit({"chunked_access": {"global_accesses_per_kernel": found,
+                             "elapsed_s": time.perf_counter() - T0}})
+    if set(found) != set(CHUNKED_FORMS):
+        fail(f"chunked instantiations {sorted(found)} are not "
+             f"{sorted(CHUNKED_FORMS)}")
+    for form, got in found.items():
+        lost = got["ldg"] < 1 or got["stg"] < 1 or got["ldg_nc"] > 0
+        if form.endswith("vector>"):
+            lost |= got["ldg_128"] < 1 or got["stg_128"] < 1
+        if lost:
+            fail(f"{form} lost its 128-bit accesses or loads through the "
+                 f"non-coherent path: {got}")
 
 
 def drive_membw(torch, counters) -> dict:
@@ -1449,30 +1533,64 @@ def in_turns(torch, calls: dict, rounds: int = MEMBW_ROUNDS) -> dict:
 
 
 def measure_membw(torch, mods) -> dict:
-    """Phase 5, membw: per-pass times at 2^26 elements. The copies (copy_,
-    the chunked, stream and dma kernels) in turns (:func:`in_turns`), in
-    float32 and bfloat16; in float32 with them the stream copy's scalar
-    and in-place forms, the 1D stream and stream2 stencil kernels, the
-    stream copy at other chunks and the dma ring at other slot sizes and
-    depths. scale, add and triad once each. Returns the float32 times
-    per (kernel, op)."""
+    """Phase 5, membw: per-pass times at 2^26 elements, in turns
+    (:func:`in_turns`), in float32 and bfloat16: ``copy_``, the four
+    chunked ops each beside its one PyTorch call (:data:`MEMBW_CALLS`)
+    and at :data:`CHUNKED_FIXED_ROWS` rows a CTA, the chunked copy through
+    its C entry with no Python wrapper, the stream and dma copies; in
+    float32 with them the stream copy's
+    scalar and in-place forms, the 1D stream and stream2 stencil kernels,
+    the chunked copy, scale and triad at other chunks, the stream copy at
+    other chunks and the dma ring at other slot sizes and depths. Returns the
+    float32 times per (kernel, op)."""
     from tpu_comm_torch.bench import TRAFFIC
-    from tpu_comm_torch.kernels import membw
+    from tpu_comm_torch.kernels import _build, membw
+    from tpu_comm_torch.kernels.tiling import KERNEL_DTYPE_CODES
 
+    c_entry = _build.libraries()["membw"].tc_membw_chunked
     n = MEMBW_N
+    s = MEMBW_S
     props = torch.cuda.get_device_properties(0)
     turns = {}
     for dtype in (torch.float32, torch.bfloat16):
         x = random_field(torch, (n,), dtype, seed=30)
+        b = random_field(torch, (n,), dtype, seed=31)
         dst = torch.empty_like(x)
         xo, do = x[1:1 + n - 128], dst[1:1 + n - 128]
-        calls = {
-            "copy_": lambda: dst.copy_(x),
-            "membw_unary": lambda: membw.step_chunked(x, None, 1.0, "copy",
-                                                      out=dst),
+        library = {
+            "copy": lambda: dst.copy_(x),
+            "scale": lambda: torch.mul(x, s, out=dst),
+            "add": lambda: torch.add(x, b, out=dst),
+            "triad": lambda: torch.add(b, x, alpha=s, out=dst),
+        }
+        calls = {}
+        for op, call in MEMBW_CALLS.items():
+            calls[call] = library[op]
+            calls[f"{membw_kernel_of(op, 'chunked')} {op}"] = (
+                lambda op=op: membw.step_chunked(x, b, s, op, out=dst))
+            calls[f"{membw_kernel_of(op, 'chunked')} {op} "
+                  f"{CHUNKED_FIXED_ROWS} rows a CTA"] = (
+                lambda op=op: membw.step_chunked(
+                    x, b, s, op, CHUNKED_FIXED_ROWS, out=dst))
+        # the copy's launch as step_chunked makes it, with no Python around
+        # it: the wrapper's checks and argument packing are off the clock
+        c_args = (x.data_ptr(), None, dst.data_ptr(), n,
+                  KERNEL_DTYPE_CODES[dtype], membw.OP_CODES["copy"], float(s),
+                  membw.default_chunk("chunked", dtype, "copy"),
+                  torch.cuda.current_stream().cuda_stream)
+
+        def c_copy(c_args=c_args):
+            if c_entry(*c_args):
+                fail("tc_membw_chunked refused the copy")
+        dst.zero_()
+        c_copy()
+        if not torch.equal(dst.view(torch.uint8), x.view(torch.uint8)):
+            fail(f"tc_membw_chunked's copy differs from x in {dtype}")
+        calls["membw_unary copy, C entry"] = c_copy
+        calls.update({
             "membw_stream": lambda: membw.step_stream(x, out=dst),
             "membw_dma": lambda: membw.step_dma(x, out=dst),
-        }
+        })
         if dtype == torch.float32:
             stencil = mods[1].STEPS
             calls.update({
@@ -1485,6 +1603,13 @@ def measure_membw(torch, mods) -> dict:
                 "jacobi1d_stream2": lambda: stencil["stream2"](
                     x, "dirichlet", out=dst),
             })
+            for kib in CHUNKED_SWEEP_KIB:
+                rows = kib * 1024 // (128 * x.element_size())
+                for op in ("copy", "scale", "triad"):
+                    calls[f"{membw_kernel_of(op, 'chunked')} {op} {kib} KiB "
+                          "a CTA"] = (
+                        lambda rows=rows, op=op: membw.step_chunked(
+                            x, b, s, op, rows, out=dst))
             for kib in STREAM_SWEEP_KIB:
                 rows = kib * 1024 // (128 * x.element_size())
                 calls[f"membw_stream {kib} KiB a CTA"] = (
@@ -1498,32 +1623,31 @@ def measure_membw(torch, mods) -> dict:
                     lambda rows=rows, depth=depth: membw.step_dma(
                         x, rows, depth, out=dst))
         name = str(dtype).removeprefix("torch.")
-        turns[name] = in_turns(torch, calls)
+        t = turns[name] = in_turns(torch, calls)
         emit({"membw_turns": {
             "dtype": name, "shape": [n], "rounds": MEMBW_ROUNDS,
-            "times": {label: {k: t[k] for k in ("ms", "spread_ms")}
-                      for label, t in turns[name].items()},
-            "over_copy_": {label: t["ms"] / turns[name]["copy_"]["ms"]
-                           for label, t in turns[name].items()},
+            "times": {label: {k: v[k] for k in ("ms", "spread_ms")}
+                      for label, v in t.items()},
+            "over_copy_": {label: v["ms"] / t["copy_"]["ms"]
+                           for label, v in t.items()},
+            "over_call": {
+                f"{membw_kernel_of(op, 'chunked')} {op}": t[
+                    f"{membw_kernel_of(op, 'chunked')} {op}"]["ms"]
+                / t[call]["ms"] for op, call in MEMBW_CALLS.items()},
             "elapsed_s": time.perf_counter() - T0}})
-        del x, dst, xo, do, calls
+        del x, b, dst, xo, do, calls, library
         torch.cuda.empty_cache()
 
     x = random_field(torch, (n,), torch.float32, seed=30)
     b = random_field(torch, (n,), torch.float32, seed=31)
     dst = torch.empty_like(x)
-    s = MEMBW_S
     library = {
-        "copy": ("dst.copy_(x)", lambda: dst.copy_(x)),
-        "scale": ("torch.mul(x, s, out=dst)",
-                  lambda: torch.mul(x, s, out=dst)),
-        "add": ("torch.add(x, b, out=dst)", lambda: torch.add(x, b, out=dst)),
-        "triad": ("torch.add(b, x, alpha=s, out=dst)",
-                  lambda: torch.add(b, x, alpha=s, out=dst)),
+        "copy": lambda: dst.copy_(x),
+        "scale": lambda: torch.mul(x, s, out=dst),
+        "add": lambda: torch.add(x, b, out=dst),
+        "triad": lambda: torch.add(b, x, alpha=s, out=dst),
     }
-    copies = {
-        "membw_unary": lambda: membw.step_chunked(x, None, 1.0, "copy",
-                                                  out=dst),
+    kernels = {
         "membw_stream": lambda: membw.step_stream(x, out=dst),
         "membw_dma": lambda: membw.step_dma(x, out=dst),
     }
@@ -1531,32 +1655,27 @@ def measure_membw(torch, mods) -> dict:
     out = {}
     for name, (_, ops, _) in MEMBW_KERNELS.items():
         for op in ops:
-            if op == "copy":
-                kernel = copies[name]
-                kernel_ms = f32[name]["ms"]
-                spread = f32[name]["spread_ms"]
-                library_ms = f32["copy_"]["ms"]
-            else:
-                def kernel():
-                    return membw.step_chunked(x, b, s, op, out=dst)
-                kernel_ms = time_ms(torch, kernel, 50)
-                spread = None
-                library_ms = time_ms(torch, library[op][1], 50)
+            label = name if name in kernels else f"{name} {op}"
+            kernel = kernels.get(name) or (
+                lambda op=op: membw.step_chunked(x, b, s, op, out=dst))
             got = kernel().clone()
             plain_ms = time_ms(
                 torch, lambda: membw.step_plain(x, b, s, op, out=dst), 20)
-            call, lib = library[op]
-            lib_err = float((lib() - got).abs().max())
+            call = MEMBW_CALLS[op]
+            lib_err = float((library[op]() - got).abs().max())
             nbytes = TRAFFIC[op] * n * x.element_size()
             ops_n = MEMBW_OPS_PER_ELEM[op] * n
             bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
             ops_ms = ops_n / PEAK_F32_OPS_PER_S * 1e3
+            kernel_ms = f32[label]["ms"]
             out[(name, op)] = {
                 "kernel": name, "op": op, "shape": [n], "dtype": "float32",
-                "kernel_ms": kernel_ms, "kernel_spread_ms": spread,
+                "kernel_ms": kernel_ms,
+                "kernel_spread_ms": f32[label]["spread_ms"],
                 "plain_ms": plain_ms,
-                "library_ms": library_ms, "library_call": call,
-                "library_max_abs_err": lib_err,
+                "library_ms": f32[call]["ms"],
+                "library_spread_ms": f32[call]["spread_ms"],
+                "library_call": call, "library_max_abs_err": lib_err,
                 "copy_ms": f32["copy_"]["ms"],
                 "bytes": nbytes, "ops": ops_n,
                 "bound_ms": max(bytes_ms, ops_ms),
@@ -1616,6 +1735,7 @@ def main() -> int:
     pack_err = check_pack(torch)
     membw_errs = check_membw(torch)
     check_stream_loads(libs)
+    check_chunked_access(libs)
     share_goldens()
     launches = drive_main_path(torch, counters)
     multi_launches = drive_multi(torch, counters)

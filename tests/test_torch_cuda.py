@@ -8,6 +8,8 @@ imports no JAX (the card's machine has none); run it there with
 (``--noconftest`` because ``tests/conftest.py`` sets up JAX).
 """
 
+import json
+
 import pytest
 import torch
 
@@ -181,6 +183,42 @@ def test_membw_dma_is_bitwise_at_every_depth(card, depth, dtype):
     n = plan.per_sm * props.multi_processor_count * (depth - 1) * 16 * 128
     x = _field((n - 128 * 8,), torch.float32)
     assert torch.equal(membw.step_dma(x, rows_per_chunk=16, depth=depth), x)
+
+
+@pytest.mark.parametrize("depth", [2, membw.DMA_MAX_DEPTH])
+def test_membw_dma_verify_wraps_every_ring(card, depth, monkeypatch,
+                                           tmp_path):
+    """``membw --op copy --impl dma --verify`` copies, byte for byte, a
+    buffer in which every CTA of ``dma_plan`` takes ``depth + 1`` chunks,
+    so every slot of every ring is refilled."""
+    from tpu_comm_torch import cli
+
+    verified = []
+    chained = membw.chained
+
+    def spy(x, *args, **kwargs):
+        verified.append(x.numel())
+        return chained(x, *args, **kwargs)
+
+    # a membw run's first pass is its verification
+    monkeypatch.setattr(membw, "chained", spy)
+    size = 1 << 24
+    path = tmp_path / "rows.jsonl"
+    assert cli.main(["membw", "--op", "copy", "--impl", "dma", "--depth",
+                     str(depth), "--size", str(size), "--iters", "2",
+                     "--warmup", "1", "--reps", "1", "--jsonl",
+                     str(path)]) == 0
+    row = json.loads(path.read_text())
+    assert row["verified"] is True and row["platform"] == "cuda"
+    props = torch.cuda.get_device_properties(0)
+    limits = (props.multi_processor_count,
+              props.shared_memory_per_multiprocessor,
+              props.shared_memory_per_block_optin)
+    rows = membw.default_chunk("dma", torch.float32)
+    assert verified[0] == membw.dma_verify_size(size, 4, rows, depth,
+                                                *limits) < size
+    plan = membw.dma_plan(verified[0], 4, rows, depth, *limits)
+    assert min(len(plan.chunks_of(b)) for b in range(plan.ctas)) >= depth + 1
 
 
 def test_membw_chunk_sets_the_grid_not_the_result(card):

@@ -196,6 +196,21 @@ def test_driver_row_has_the_jax_rows_identity(tmp_path, cfg):
     )
 
 
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("op", list(pmembw.OP_CODES))
+def test_driver_row_reports_the_ops_default_chunk(op, dtype):
+    """With no --chunk the chunked arm runs, verifies and reports its op's
+    own default: CHUNKED_DEFAULT_CHUNK_BYTES[op] of each operand a CTA,
+    whatever the dtype, with chunk_source "auto"."""
+    tdt = DTYPES[dtype][1]
+    rec = pdriver.run_membw(_port_cfg(op=op, impl="chunked", dtype=dtype))
+    assert rec["verified"] is True
+    assert rec["chunk_source"] == "auto"
+    assert rec["chunk"] == pmembw.default_chunk("chunked", tdt, op)
+    assert (rec["chunk"] * 128 * tdt.itemsize
+            == pmembw.CHUNKED_DEFAULT_CHUNK_BYTES[op])
+
 def test_cli_both_runs_chunked_then_torch_on_cpu(tmp_path):
     path = tmp_path / "rows.jsonl"
     res = subprocess.run(
@@ -345,10 +360,51 @@ def test_default_dma_slot_fits_the_h100_at_every_depth(dtype, depth):
     assert plan.ctas >= CARDS["h100"]["sms"]
 
 
+#: dma_verify_size on the H100 at the default 16 KiB slots, float32
+#: elements by depth (bfloat16: twice as many, the same bytes)
+H100_DMA_VERIFY = {2: 9732096, 3: 8650752, 4: 8110080, 5: 6488064,
+                   6: 7569408, 7: 8650752, 8: 4866048}
+
+
+@pytest.mark.parametrize("card", list(CARDS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("depth", range(2, pmembw.DMA_MAX_DEPTH + 1))
+def test_dma_verify_size_wraps_every_ring(card, dtype, depth):
+    """The dma arm's --verify size: every CTA of dma_plan takes depth + 1
+    chunks (each slot refilled once), no fewer elements would do, and
+    never more than the measured size, which is verified whole when it
+    is smaller."""
+    limits = CARDS[card]
+    tdt = DTYPES[dtype][1]
+    itemsize = torch.empty((), dtype=tdt).element_size()
+    default = pmembw.default_chunk("dma", tdt)
+    for rows in (default, 1, 8):
+        if (depth * rows * 128 * itemsize + pmembw.DMA_BARRIER_BYTES
+                > limits["smem_per_cta"]):
+            with pytest.raises(ValueError, match="shared memory"):
+                pmembw.dma_verify_size(1 << 26, itemsize, rows, depth,
+                                       **limits)
+            continue
+        size = pmembw.dma_verify_size(1 << 26, itemsize, rows, depth,
+                                      **limits)
+        assert size < 1 << 26 and size % (rows * 128) == 0
+        if card == "h100" and rows == default:
+            assert size * itemsize == H100_DMA_VERIFY[depth] * 4
+        for n, least in ((size, depth + 1), (size - rows * 128, depth)):
+            plan = pmembw.dma_plan(n, itemsize, rows, depth, **limits)
+            counts = [len(plan.chunks_of(b)) for b in range(plan.ctas)]
+            assert min(counts) == least, n
+        for n in (size - 128, 128 * 8 * 3 + 128, 128):
+            assert pmembw.dma_verify_size(n, itemsize, rows, depth,
+                                          **limits) == n
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_default_copy_chunks_are_fixed_bytes_a_cta(dtype):
     tdt = DTYPES[dtype][1]
     itemsize = torch.empty((), dtype=tdt).element_size()
     assert (pmembw.default_chunk("stream", tdt) * 128 * itemsize
             == pmembw.STREAM_DEFAULT_CHUNK_BYTES)
-    assert pmembw.default_chunk("chunked", tdt) == pmembw.CHUNKED_DEFAULT_ROWS
+    for op in pmembw.OP_CODES:
+        assert (pmembw.default_chunk("chunked", tdt, op) * 128 * itemsize
+                == pmembw.CHUNKED_DEFAULT_CHUNK_BYTES[op])

@@ -150,10 +150,19 @@ def _oracle(op: str, impl: str, x: np.ndarray, b: np.ndarray, s: float,
 def _verify(cfg: MembwConfig, rows_per_chunk: int, device: torch.device,
             depth: int) -> None:
     """One iteration with non-trivial operand values against the golden;
-    the dma arm bitwise."""
+    the dma arm bitwise. At most 8 chunks, as in the JAX package, except
+    for the dma arm on a card: enough for every CTA's ring to wrap
+    (``kernels.dma_verify_size``)."""
     rng = np.random.default_rng(0)
     dtype = torch_dtype(cfg.dtype)
     n = min(cfg.size, 8 * LANES * max(rows_per_chunk, 8))
+    if cfg.impl == "dma" and device.type == "cuda":
+        props = torch.cuda.get_device_properties(device)
+        n = kernels.dma_verify_size(
+            cfg.size, dtype.itemsize, rows_per_chunk, depth,
+            props.multi_processor_count,
+            props.shared_memory_per_multiprocessor,
+            props.shared_memory_per_block_optin)
     host = numpy_dtype(dtype)
     x = from_numpy_field(rng.standard_normal(n).astype(host), device, dtype)
     b = from_numpy_field(rng.standard_normal(n).astype(host), device, dtype)
@@ -196,7 +205,7 @@ def run_membw(cfg: MembwConfig) -> dict:
     elif cfg.chunk is not None:
         rows_per_chunk, chunk_source = cfg.chunk, "user"
     else:
-        rows_per_chunk = kernels.default_chunk(cfg.impl, dtype)
+        rows_per_chunk = kernels.default_chunk(cfg.impl, dtype, cfg.op)
         chunk_source = "auto"
     if cfg.verify:
         _verify(cfg, rows_per_chunk, device, depth or DEFAULT_DMA_DEPTH)

@@ -73,9 +73,20 @@ bool aligned16(const void* p) {
 // offset view) the same walk runs one element at a time. `out` may be `x`
 // (the aliased knob, input_output_aliases on the TPU): each element is read
 // by the thread that writes it, before it writes it, so no pointer here is
-// __restrict__. Without it the compiler keeps each store before the next
-// load, so a thread loads kBatch vectors first to keep that many in
-// flight: the loads a copy needs to fill DRAM's pipe.
+// __restrict__ and no load takes the non-coherent path. Without it the
+// compiler keeps each store before the next load, so a thread loads kBatch
+// vectors of each operand first to keep that many in flight.
+//
+// What sets their speed on this card is the chunk: a fixed number of bytes
+// of each operand a CTA, the same in every dtype (kernels/membw.py
+// CHUNKED_DEFAULT_CHUNK_BYTES): 8 KiB for copy, 4 KiB for scale, add and
+// triad, two and one vectors a thread. The first form took a fixed 32
+// rows a CTA (16 KiB in float32, 8 KiB in bfloat16). Measured on an
+// H100 and not kept, as none paid beyond the spreads (PERF.md §6):
+// __restrict__ pointers with non-coherent loads out of place and separate
+// in-place forms, non-coherent loads, batches of 2 and 8, evict-first
+// loads (slower alone), streaming stores, both, and an L2 evict-first
+// policy.
 // ---------------------------------------------------------------------------
 template <typename T, int kOp, bool kVec>
 __device__ __forceinline__ void chunk_pass(const T* x, const T* b, T* out,

@@ -46,8 +46,12 @@ LANES = 128
 #: op codes of ``tc_membw_chunked`` (kCopy..kTriad in csrc/membw.cu)
 OP_CODES = {"copy": 0, "scale": 1, "add": 2, "triad": 3}
 BINARY_OPS = ("add", "triad")
-#: default rows of 128 elements per CUDA block of the chunked kernels
-CHUNKED_DEFAULT_ROWS = 32
+#: default bytes of each operand a CTA of the chunked kernels takes, by
+#: op: two 16-byte vectors a thread for copy, one for scale, add and triad,
+#: the fastest of 4-64 KiB on the H100 (chip_smoke.py phase 5's sweep,
+#: PERF.md §6)
+CHUNKED_DEFAULT_CHUNK_BYTES = {"copy": 8 * 1024, "scale": 4 * 1024,
+                               "add": 4 * 1024, "triad": 4 * 1024}
 #: default bytes a CTA of the stream copy takes: two 16-byte vectors a
 #: thread in float32, four in bfloat16/float16 (the fastest of 4-256 KiB
 #: on the H100, PERF.md §6; the 1D stencil's own 8-row chunk gives the
@@ -109,26 +113,38 @@ def dma_plan(n: int, itemsize: int, rows_per_chunk: int, depth: int,
     return DmaPlan(chunk_bytes, n_chunks, ring, per_sm, ctas)
 
 
+def dma_verify_size(n: int, itemsize: int, rows_per_chunk: int, depth: int,
+                    sms: int, smem_per_sm: int, smem_per_cta: int) -> int:
+    """Elements the dma arm's ``--verify`` copies on a card with these
+    limits: the fewest at which every CTA of :func:`dma_plan` takes
+    ``depth + 1`` chunks, so that every slot of every ring is refilled
+    once, capped at the measured size ``n`` (whose timed loop then wraps
+    no ring either). Raises ValueError where :func:`dma_plan` does."""
+    plan = dma_plan(n, itemsize, rows_per_chunk, depth, sms, smem_per_sm,
+                    smem_per_cta)
+    ctas = sms * max(plan.per_sm, 1)
+    return min(n, ctas * (depth + 1) * rows_per_chunk * LANES)
+
+
 def check_op(op: str) -> None:
     if op not in MEMBW_OPS:
         raise ValueError(f"op must be one of {MEMBW_OPS}, got {op!r}")
 
 
-def default_chunk(impl: str, dtype: torch.dtype) -> int:
-    """The rows per chunk a kernel arm uses when the caller passes none:
-    a fixed number of bytes for the copy arms, a fixed number of rows for
-    the chunked kernels."""
-    chunk_bytes = {"stream": STREAM_DEFAULT_CHUNK_BYTES,
-                   "dma": DMA_DEFAULT_CHUNK_BYTES}.get(impl)
-    if chunk_bytes is None:
-        return CHUNKED_DEFAULT_ROWS
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return chunk_bytes // (LANES * itemsize)
+def default_chunk(impl: str, dtype: torch.dtype, op: str = "copy") -> int:
+    """The rows per chunk a kernel arm uses for ``op`` when the caller
+    passes none: a fixed number of bytes a CTA (a ring slot for dma), the
+    same in every dtype."""
+    chunk_bytes = (CHUNKED_DEFAULT_CHUNK_BYTES[op] if impl == "chunked" else
+                   {"stream": STREAM_DEFAULT_CHUNK_BYTES,
+                    "dma": DMA_DEFAULT_CHUNK_BYTES}[impl])
+    return chunk_bytes // (LANES * dtype.itemsize)
 
 
-def _chunk(rows_per_chunk: int | None, impl: str, dtype: torch.dtype) -> int:
+def _chunk(rows_per_chunk: int | None, impl: str, dtype: torch.dtype,
+           op: str = "copy") -> int:
     if rows_per_chunk is None:
-        return default_chunk(impl, dtype)
+        return default_chunk(impl, dtype, op)
     if rows_per_chunk < 1:
         raise ValueError(f"rows_per_chunk must be >= 1, got {rows_per_chunk}")
     return rows_per_chunk
@@ -176,7 +192,7 @@ def step_chunked(x: torch.Tensor, b: torch.Tensor | None, s: float, op: str,
     if binary and b is None:
         raise ValueError(f"op {op!r} needs the second operand b")
     out = check_membw_args(x, out, aliased, *((b,) if binary else ()))
-    rows = _chunk(rows_per_chunk, "chunked", x.dtype)
+    rows = _chunk(rows_per_chunk, "chunked", x.dtype, op)
     if x.device.type == "cpu":
         return step_plain(x, b, s, op, out)
     _require_cuda(x)
