@@ -23,7 +23,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
      every dtype x bc at full size over 3 passes of t = 8,
      t = 1 (in float32 also equal to one step of the block kernel), a t
      above the kernel's most steps a launch (chained sub-passes), ragged
-     shapes and non-default tiles;
+     shapes and non-default tiles; for the 2D and 3D kernels also every t
+     a launch takes at full size and views off the 16-byte grid; and
+     (``cuobjdump``) no instantiation of the 2D or 3D multi kernel spills
+     to local memory, and the 2D one keeps its 128-bit accesses;
    - the ghost-fed wave kernels of the mesh wave arm (1D, 2D star): 20
      chained steps with fresh random ghost lines each step, every dtype,
      at full size, ragged and tiny shapes (one cell, one row, one
@@ -75,7 +78,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    its exchange alone; for the multi kernels the time per pass of t = 8,
    its bound, and a circular convolution with the t-fold stencil as the
    library call (t = 4 for the 3D wavefront, also timed at t = 1, 2,
-   8); for the mesh ``multi`` arm one pass divided by t beside the block
+   8), the pass timed in turns beside the block kernel called t times
+   and ``copy_`` (the 3D wavefront also at t = 1 beside one block step);
+   for the mesh ``multi`` arm one pass divided by t beside the block
    arm's step; the ghost-fed wave kernels with a convolution of the
    ghost-padded block as the library call; the mesh wave arm's step of
    every stencil beside its kernel and its exchange;
@@ -249,9 +254,10 @@ MULTI_T_SWEEP = {1: (1, 2, 4, 16), 2: (1, 2, 4, 16), 3: (1, 2, 8)}
 MULTI_TILE_SWEEP = {
     1: [{"rows_per_chunk": r} for r in (8, 16, 64)],
     2: [{"rows_per_chunk": r, "cols_per_chunk": c}
-        for r, c in ((48, 48), (32, 96), (96, 96), (48, 112))],
+        for r, c in ((48, 48), (32, 96), (96, 96), (48, 112), (64, 112),
+                     (256, 112), (512, 112))],
     3: [{"rows_per_chunk": r, "cols_per_chunk": c}
-        for r, c in ((24, 24), (24, 56), (24, 120))],
+        for r, c in ((12, 56), (24, 28), (24, 56))],
 }
 #: loop length of the single-device multi runs (a multiple of MULTI_T)
 MULTI_ITERS = 96
@@ -1076,6 +1082,25 @@ def check_multi(torch, mods) -> dict:
                         hold(mod.step_multi(u, bc, t_pass, **tile), ref,
                              f"{full} {bc} tile {tile}")
                     del ref
+                    # every t a launch of the 2D and 3D kernels takes
+                    for t in (range(1, MULTI_T_MAX[dim] + 1) if dim > 1
+                              else ()):
+                        hold(mod.step_multi(u, bc, t),
+                             mod.step_multi_plain(u, bc, t),
+                             f"{full} {bc} t={t}")
+                if dim > 1 and dtype != torch.float16:
+                    # views off the 16-byte grid, in and out: the 2D
+                    # kernel's scalar loads and stores
+                    n = u.numel()
+                    base = random_field(torch, (n + 8,), dtype, seed=55)
+                    view = base[1:1 + n].view(full)
+                    dst = torch.empty(n + 1, dtype=dtype,
+                                      device="cuda")[1:].view(full)
+                    hold(mod.step_multi(view, bc, t_pass, out=dst),
+                         mod.step_multi_plain(view, bc, t_pass),
+                         f"{full} {dtype} {bc} t={t_pass} off the 16-byte "
+                         f"grid")
+                    del base, view, dst
                 del u, one, got
                 for shape in RAGGED[dim] + ([(2, 3, 3)] if dim == 3
                                             else []):
@@ -1090,7 +1115,11 @@ def check_multi(torch, mods) -> dict:
                         "shapes": [list(full)] + RAGGED[dim],
                         "bcs": list(MULTI_BCS.get(key, ("dirichlet",
                                                         "periodic"))),
-                        "t_steps": sorted({1, 3, t_pass, MULTI_T, t_over}),
+                        "t_steps": sorted(
+                            {1, 3, t_pass, MULTI_T, t_over}
+                            | set(range(1, MULTI_T_MAX[dim] + 1)
+                                  if dim > 1 else ())),
+                        "offset_views": dim > 1,
                         "max_abs_err": worst,
                         "tolerance": "bitwise (torch.equal)",
                         "elapsed_s": time.perf_counter() - T0}})
@@ -1173,11 +1202,41 @@ def composed_weights(torch, key: int, t: int):
     return k.float()
 
 
+def multi_turn_calls(mod, u, dst, key: int, t: int) -> dict:
+    """The calls :func:`measure_multi` times in turns for a multi family:
+    a pass of ``t`` steps (``multi``), the same stencil's block kernel
+    called ``t`` times (``block_x{t}``, ping-pong between two scratch
+    fields: the control a temporal-blocking pass must beat) and ``copy_``
+    of the same bytes; for the 3D wavefront also its pass of t = 1 (the
+    mesh ``wave`` arm's launch) beside one block step."""
+    x, y = u.clone(), u.new_empty(u.shape)
+
+    def blocks(steps: int):
+        def run():
+            a, b = x, y
+            for _ in range(steps):
+                mod.step_block(a, "dirichlet", out=b)
+                a, b = b, a
+        return run
+
+    calls = {"multi": lambda: mod.step_multi(u, "dirichlet", t, out=dst),
+             f"block_x{t}": blocks(t),
+             "copy_": lambda: dst.copy_(u)}
+    if key == 3:
+        calls["multi_t1"] = lambda: mod.step_multi(u, "dirichlet", 1,
+                                                   out=dst)
+        calls["block_x1"] = blocks(1)
+    return calls
+
+
 def measure_multi(torch, mods) -> dict:
     """Phase 5, temporal blocking: per-pass times of the multi kernels at
-    t = 8 at the full float32 sizes, beside their bound, the plain
-    version, copies of the same bytes and one circular convolution with
-    the t-fold composed stencil."""
+    t = 8 (3D: 4) at the full float32 sizes, in turns (:func:`in_turns`,
+    the median of three and the spread) beside the block kernel called t
+    times and ``copy_`` (:func:`multi_turn_calls`); beside them their
+    bound, the plain version, the chunked copy of the same bytes and one
+    circular convolution with the t-fold composed stencil, and a pass at
+    other t and tiles."""
     from tpu_comm_torch.kernels import membw
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1190,8 +1249,8 @@ def measure_multi(torch, mods) -> dict:
         u = random_field(torch, shape, torch.float32, seed=70 + key)
         dst = torch.empty_like(u)
         n = u.numel()
-        kernel_ms = time_ms(
-            torch, lambda: mod.step_multi(u, "dirichlet", t, out=dst), 30)
+        turns = in_turns(torch, multi_turn_calls(mod, u, dst, key, t))
+        kernel_ms = turns["multi"]["ms"]
         periodic_ms = None
         if "periodic" in MULTI_BCS.get(key, ("periodic",)):
             periodic_ms = time_ms(
@@ -1234,7 +1293,9 @@ def measure_multi(torch, mods) -> dict:
             "kernel": name, "shape": list(shape), "dtype": "float32",
             "bc": "dirichlet", "t_steps": t,
             "t_sweep_ms": t_sweep_ms, "tile_sweep_ms": tile_sweep_ms,
-            "kernel_ms": kernel_ms, "kernel_periodic_ms": periodic_ms,
+            "turns": turns, "kernel_ms": kernel_ms,
+            "kernel_spread_ms": turns["multi"]["spread_ms"],
+            "kernel_periodic_ms": periodic_ms,
             "kernel_ms_per_iter": kernel_ms / t,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_call": f"torch.nn.Conv{dim}d(kernel {2 * t + 1}, "
@@ -1473,6 +1534,93 @@ def check_chunked_access(libs) -> None:
         if lost:
             fail(f"{form} lost its 128-bit accesses or loads through the "
                  f"non-coherent path: {got}")
+
+
+#: the instantiations of the redesigned multi kernels in ``multi.cu``:
+#: every dtype pair a launch takes (``with_dtypes``), each bc and stencil
+#: of the 2D kernel, and each t of the 3D wavefront
+MULTI_DTYPE_PAIRS = [("float", "float"), ("__nv_bfloat16", "__nv_bfloat16"),
+                     ("__half", "__half"), ("__nv_bfloat16", "float"),
+                     ("float", "__nv_bfloat16"), ("__half", "float"),
+                     ("float", "__half")]
+MULTI2D_FORMS = [f"multi2d_kernel<{a}, {b}, {p}, {box}>"
+                 for a, b in MULTI_DTYPE_PAIRS for p in (0, 1)
+                 for box in (0, 1)]
+MULTI3D_FORMS = [f"jacobi3d_multi_kernel<{a}, {b}, {t}>"
+                 for a, b in MULTI_DTYPE_PAIRS for t in (1, 2, 3, 4)]
+
+
+def _demangle_types(head: str) -> list:
+    """The two type arguments that open an Itanium-mangled template
+    argument list of the multi kernels (``f``, ``13__nv_bfloat16``,
+    ``6__half``, or ``S<n>_`` repeating the first)."""
+    import re
+
+    names = {"f": "float", "13__nv_bfloat16": "__nv_bfloat16",
+             "6__half": "__half"}
+    m = re.match(r"(f|13__nv_bfloat16|6__half)(f|13__nv_bfloat16|6__half"
+                 r"|S\d*_)", head)
+    if m is None:
+        fail(f"cannot read the types of {head}")
+    first = names[m.group(1)]
+    second = first if m.group(2).startswith("S") else names[m.group(2)]
+    return [first, second, head[m.end():]]
+
+
+#: the local-memory accesses (static ``LDL``/``STL`` instructions) the 2D
+#: kernel's dirichlet forms may hold: capped at 168 registers,
+#: ptxas spills a few words there (3-14 accesses with CUDA 12.8's nvcc);
+#: every other multi form holds none
+MULTI2D_DIRICHLET_SPILLS = 16
+
+
+def check_multi_spills(libs) -> None:
+    """The redesigned multi kernels hold their levels in registers: in the
+    machine code of each instantiation (exactly :data:`MULTI2D_FORMS` and
+    :data:`MULTI3D_FORMS`) no local-memory access (``LDL``/``STL``, a
+    spill), but for the 2D dirichlet forms, which hold at most
+    :data:`MULTI2D_DIRICHLET_SPILLS`; and the 2D kernel's lanes load and
+    store their four float32 columns as one 128-bit access (``LDG...128``
+    where it reads float32, ``STG...128`` where it writes float32)."""
+    import re
+
+    found = {}
+    for fn, part in _sass_functions(libs, "multi"):
+        m = re.search(r"(multi2d_kernel|jacobi3d_multi_kernel)I(\w+)", fn)
+        if m is None:
+            continue
+        name = m.group(1)
+        tin, tout, rest = _demangle_types(m.group(2))
+        if name == "multi2d_kernel":
+            mm = re.match(r"Lb([01])ELb([01])E", rest)
+            form = f"{name}<{tin}, {tout}, {mm.group(1)}, {mm.group(2)}>"
+        else:
+            mm = re.match(r"Li(\d+)E", rest)
+            form = f"{name}<{tin}, {tout}, {mm.group(1)}>"
+        loads = re.findall(r"\bLDG(?:\.[A-Z0-9_]+)*", part)
+        stores = re.findall(r"\bSTG(?:\.[A-Z0-9_]+)*", part)
+        found[form] = {
+            "local": len(re.findall(r"\b(?:LDL|STL)\b", part)),
+            "ldg_128": sum(".128" in i for i in loads),
+            "stg_128": sum(".128" in i for i in stores),
+        }
+    emit({"multi_spills": {"accesses_per_kernel": found,
+                           "elapsed_s": time.perf_counter() - T0}})
+    if set(found) != set(MULTI2D_FORMS + MULTI3D_FORMS):
+        fail(f"multi instantiations {sorted(found)} are not "
+             f"{sorted(MULTI2D_FORMS + MULTI3D_FORMS)}")
+    for form, got in found.items():
+        allowed = (MULTI2D_DIRICHLET_SPILLS
+                   if re.fullmatch(r"multi2d_kernel<.*, 0, [01]>", form)
+                   else 0)
+        if got["local"] > allowed:
+            fail(f"{form} spills to local memory: {got}, at most "
+                 f"{allowed} accesses allowed")
+        if form.startswith("multi2d"):
+            tin, tout = form.split("<")[1].split(", ")[:2]
+            if (tin == "float" and got["ldg_128"] < 1) or (
+                    tout == "float" and got["stg_128"] < 1):
+                fail(f"{form} lost its 128-bit loads or stores: {got}")
 
 
 def drive_membw(torch, counters) -> dict:
@@ -1736,6 +1884,7 @@ def main() -> int:
     membw_errs = check_membw(torch)
     check_stream_loads(libs)
     check_chunked_access(libs)
+    check_multi_spills(libs)
     share_goldens()
     launches = drive_main_path(torch, counters)
     multi_launches = drive_multi(torch, counters)
@@ -1789,6 +1938,7 @@ def main() -> int:
             "max_abs_err": multi_errs[key], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "spread_ms": t["kernel_spread_ms"],
             "copy_ms": t["copy_ms"], "chunked_copy_ms": t["chunked_copy_ms"],
             "t_steps": t["t_steps"], "shape": t["shape"], "dtype": "float32",
         })

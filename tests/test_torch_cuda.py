@@ -491,6 +491,51 @@ def test_multi_tile_sets_the_grid_not_the_result(card, key):
         assert torch.equal(got, ref), tile
 
 
+#: 2D fields whose strips mix lanes that load and store 16-byte vectors
+#: (inside the field, on the 16-byte grid) with lanes that wrap the edges
+#: or load scalars: rows a multiple of 4 wide and not, several strips and
+#: tiles a row, several tile rows
+MULTI2D_STRIP_SHAPES = [(300, 1024), (300, 1021), (61, 517), (130, 250)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("key", [2, 9])
+def test_multi2d_interior_strips_beside_wrapping_edges(card, key, bc, dtype):
+    """Interior strips (vector loads, no ring test) beside the edge
+    strips that wrap or hold the dirichlet ring, at t = 1..8 in one
+    launch and beyond (chained) and at tiles that cut a row into several
+    strips and several tiles, bitwise."""
+    mod = _multi(key)
+    for shape in MULTI2D_STRIP_SHAPES:
+        u = _field(shape, dtype, seed=shape[1])
+        for t in (1, 3, 7, 8, 9, 16):
+            want = mod.step_multi_plain(u, bc, t)
+            for tile in ({}, {"rows_per_chunk": 37, "cols_per_chunk": 300},
+                         {"rows_per_chunk": 128, "cols_per_chunk": 53}):
+                got = mod.step_multi(u, bc, t, **tile)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (shape, t, tile)
+
+
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("key", [2, 9])
+def test_multi2d_takes_views_off_the_16_byte_grid(card, key, bc):
+    mod = _multi(key)
+    for dtype in (torch.float32, torch.bfloat16):
+        base = _field(300 * 1024 + 8, dtype)
+        for off, shape in ((1, (300, 1024)), (3, (257, 1020)),
+                           (4, (300, 1024))):
+            u = base[off:off + shape[0] * shape[1]].view(shape)
+            out = torch.empty(shape[0] * shape[1] + 1, dtype=dtype,
+                              device="cuda")[1:].view(shape)
+            for t in (2, 8, 16):
+                got = mod.step_multi(u, bc, t, out=out)
+                want = mod.step_multi_plain(u, bc, t)
+                assert torch.equal(got, want), (off, shape, t)
+
+
 @pytest.mark.parametrize("key", [1, 2, 9])
 def test_multi_wrapper_counts_launches_and_checks_its_arguments(card, key):
     mod = _multi(key)
@@ -507,9 +552,17 @@ def test_multi_wrapper_counts_launches_and_checks_its_arguments(card, key):
         mod.step_multi(u.double())
     with pytest.raises(ValueError, match="t_steps must be >= 1"):
         mod.step_multi(u, t_steps=0)
-    with pytest.raises(ValueError, match="shared memory"):
-        mod.step_multi(u, rows_per_chunk=1 << 12)
-    assert mod.step_multi.launches == before + 4
+    with pytest.raises(ValueError, match="tile must be >= 1"):
+        mod.step_multi(u, rows_per_chunk=0)
+    if key == 1:
+        with pytest.raises(ValueError, match="shared memory"):
+            mod.step_multi(u, rows_per_chunk=1 << 12)
+        assert mod.step_multi.launches == before + 4
+    else:
+        # a 2D block is one warp walking its tile: any tile fits
+        assert torch.equal(mod.step_multi(u, rows_per_chunk=1 << 12),
+                           mod.step_multi(u))
+        assert mod.step_multi.launches == before + 6
 
 
 @pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
@@ -722,6 +775,38 @@ def test_multi3d_tile_sets_the_grid_not_the_result(card):
         assert torch.equal(got, ref), (rows, cols)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multi3d_interior_blocks_beside_edge_blocks(card, dtype):
+    """Blocks whose window holds no shell cell (no ring or field tests)
+    beside edge blocks, at t = 1..4 and at tiles that leave interior
+    blocks, z ranges of several planes, bitwise."""
+    for shape in ((40, 150, 150), (9, 100, 203)):
+        u = _field(shape, dtype, seed=shape[2])
+        for t in (1, 2, 3, 4):
+            want = jacobi3d.step_multi_plain(u, "dirichlet", t)
+            for rows, cols in ((24, 56), (16, 24), (8, 24), (20, 40)):
+                got = jacobi3d.step_multi(u, "dirichlet", t,
+                                          rows_per_chunk=rows,
+                                          cols_per_chunk=cols)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (shape, t, rows, cols)
+
+
+def test_multi3d_mesh_wave_arm_of_one(card):
+    """The mesh ``wave`` arm in 3D at world size 1: each step launches the
+    wavefront at t = 1 on the rank's block (through NCCL to itself), and
+    the gathered field passes the golden."""
+    from tpu_comm_torch.bench import stencil
+
+    before = jacobi3d.step_multi.launches
+    rec = stencil.run_distributed_bench(stencil.StencilConfig(
+        dim=3, size=40, iters=4, bc="dirichlet", impl="wave",
+        mesh=(1, 1, 1), verify=True, verify_iters=4, warmup=1, reps=2,
+    ))
+    assert rec["platform"] == "cuda" and rec["verified"] is True
+    assert jacobi3d.step_multi.launches > before
+
+
 def test_multi3d_takes_views_off_the_16_byte_grid(card):
     base = _field((1 << 16) + 8, torch.float32)
     u = base[3:3 + 6 * 40 * 250].view(6, 40, 250)
@@ -747,9 +832,13 @@ def test_multi3d_wrapper_counts_launches_and_checks_its_arguments(card):
         jacobi3d.step_multi(u, "periodic")
     with pytest.raises(ValueError, match="t_steps must be >= 1"):
         jacobi3d.step_multi(u, t_steps=0)
-    with pytest.raises(ValueError, match="threads"):
-        jacobi3d.step_multi(u, rows_per_chunk=1000)
-    assert jacobi3d.step_multi.launches == before + 4
+    with pytest.raises(ValueError, match="tile must be >= 1"):
+        jacobi3d.step_multi(u, rows_per_chunk=0)
+    # a tile whose window needs more threads than a block has is cut to
+    # one that fits (tiling.multi3d_block_tile): taken, same result
+    assert torch.equal(jacobi3d.step_multi(u, rows_per_chunk=1000),
+                       jacobi3d.step_multi(u))
+    assert jacobi3d.step_multi.launches == before + 6
 
 
 #: blocks of the ghost-fed wave kernels (the mesh wave arm's 1D and 2D

@@ -190,6 +190,29 @@ def test_library_refuses_what_jax_refuses():
     assert not hasattr(kernels_for(3, 27), "run_multi")
 
 
+@pytest.mark.parametrize("tile", [(1, 1), (3, 5), (40, 72), (7, 300),
+                                  (128, 32), (1 << 12, 1 << 12)])
+@pytest.mark.parametrize("t", [1, 4, 8])
+def test_any_2d_tile_fits_a_block(tile, t):
+    """A 2D block is one warp that walks its tile in strips, its levels in
+    registers: no tile of at least one cell is refused; a tile below one
+    cell is refused."""
+    from tpu_comm_torch.kernels import tiling
+
+    tiling.check_multi_tile(2, tile, t)
+    with pytest.raises(ValueError, match="tile must be >= 1"):
+        tiling.check_multi_tile(2, (0, tile[1]), t)
+
+
+def test_default_2d_tile_is_one_strip_at_the_main_t():
+    """The default 2D tile's columns are one warp's strip at t = 8: 32
+    lanes of 4 columns less the apron of 8 a side."""
+    rows, cols = p2.MULTI_DEFAULT_TILE
+    assert cols + 2 * 8 == 32 * 4
+    assert p2.default_multi_chunk((8192, 8192)) == rows
+    assert p9.default_multi_chunk((8192, 8192)) == rows
+
+
 def test_run_multi_of_zero_iters_copies_the_field():
     u = torch.from_numpy(_field((64, 64)))
     got = p2.run_multi(u, 0, t_steps=8)

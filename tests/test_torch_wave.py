@@ -279,6 +279,31 @@ def test_defaults_fit_their_blocks():
         tiling.check_multi_tile(3, (1000, 24), 4)
 
 
+@pytest.mark.parametrize("tile,extents", [
+    ((56, 56), (512, 512)), ((1000, 24), (4096, 4096)),
+    ((1, 1000), (8, 1024)), ((8, 24), (3, 5)), ((5, 19), (512, 512)),
+    ((4096, 4096), (4096, 4096)), ((1, 1), (3, 3)),
+])
+@pytest.mark.parametrize("t", [1, 2, 3, 4])
+def test_wavefront_block_tile_fits_and_cuts_only_what_it_must(tile, extents,
+                                                              t):
+    """``multi3d_block_tile`` takes every tile: cut to the field, then
+    halved on its longer side until the window fits a block's threads;
+    a tile that fits (cut to the field) is taken as it is."""
+    got = tiling.multi3d_block_tile(tile, t, extents)
+    cut = (min(tile[0], extents[0]), min(tile[1], extents[1]))
+    tiling.check_multi_tile(3, got, t)
+    assert tiling.multi_smem(3, got, t) <= tiling.MAX_SMEM_BYTES
+    assert 1 <= got[0] <= cut[0] and 1 <= got[1] <= cut[1]
+    if tiling.multi3d_threads(cut, t) <= tiling.MULTI3D_MAX_THREADS:
+        assert got == cut
+    with pytest.raises(ValueError, match="tile must be >= 1"):
+        tiling.multi3d_block_tile((0, 4), t, extents)
+    default = tiling.multi3d_default_tile(t)
+    tiling.check_multi_tile(3, default, t)
+    assert default[1] + 2 * t == tiling.MULTI3D_WINDOW[1]
+
+
 @pytest.mark.parametrize("mod", [p9.step_wave, p27.step_wave,
                                  p3.step_multi])
 def test_wrappers_refuse_periodic_and_never_fall_back(mod):

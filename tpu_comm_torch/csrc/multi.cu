@@ -34,7 +34,7 @@
 // information barrier: the junk a tile's window holds beyond the field's
 // edge never crosses it.
 //
-// Design (1D, 2D; the 3D wavefront's is set out at its kernel):
+// Design (1D; the 2D and 3D kernels' are set out at their kernels):
 // overlapped (trapezoid) tiling. Each block owns one output tile,
 // loads the tile plus a t-cell halo on every side (wrapped modulo the
 // extents) into shared memory as f32, and runs the t steps ping-pong
@@ -42,18 +42,15 @@
 // side a step, with a barrier between steps; then it stores the tile's
 // centre. No block depends on another or on the order of the grid. The
 // TPU kernels keep full rows of a strip in VMEM and fix the global edge
-// bands outside the kernel; a full f32 row at 8192 is 32 KB, so the 2D
-// kernels take square-ish tiles with halos on all four sides instead.
+// bands outside the kernel; here every cell is computed in the kernel.
 //
 // What bounds these on this card: a pass must read and write the field
-// once, 2 * N * itemsize bytes, for t steps of 2 (1D), 4 (2D) or 8
-// (9-point) operations a cell, which for t = 8 is still below the card's
-// ratio of f32 operations to bytes. The trapezoid's recomputed halo (a
-// 64 x 64 tile's window is 1.56 times its area at t = 8) and the
-// instructions of each cell's step come on top, and they, not DRAM,
-// bound these kernels: so a block whose window holds no cell of the
-// global dirichlet ring skips the ring test (kFreeze), and a full work
-// item runs without bound tests (kFull).
+// once, 2 * N * itemsize bytes, for t steps of 2 (1D), 4 (2D), 8
+// (9-point) or 6 (3D) operations a cell, which for t = 8 is still below
+// the card's ratio of f32 operations to bytes. The trapezoid's recomputed
+// halo and the instructions of each cell's step come on top, and they,
+// not DRAM, bound these kernels: so a block whose window holds no cell of
+// the global dirichlet ring skips the ring test (kFreeze, kEdge).
 //
 // Steps beyond kTMax1 / kTMax2 / kTMax3 are chained by the wrapper into
 // sub-passes through an f32 scratch field: a launch can read and write
@@ -65,6 +62,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -75,10 +73,10 @@ constexpr int kBFloat16 = 1;
 constexpr int kFloat16 = 2;
 
 // the most steps one launch runs (the wrappers' T_MAX): 1D from the
-// default tile's halo, 2D from the shared memory of a 64 x 64 tile's
-// window (96 x 96 f32, two buffers: 72 KB)
+// default tile's halo, 2D from the registers of a lane's level rings
+// (kTMax2 levels of three rows of kCols2 columns)
 constexpr int kTMax1 = 256;
-constexpr int kTMax2 = 16;
+constexpr int kTMax2 = 8;
 // the dynamic shared memory one block may use on sm_90
 constexpr int kMaxSmem = 232448;
 
@@ -119,8 +117,8 @@ struct alignas(sizeof(T) * kV) Vec {
   T e[kV];
 };
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+bool aligned_to(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 // global loads a thread issues before it writes the first of them to
@@ -255,20 +253,46 @@ __global__ void __launch_bounds__(kThreads1)
 // _edge_band_fix_multi_2d and _stencil9_multi_kernel /
 // _box_edge_band_fix_multi.
 //
-// A block of 256 threads owns a tile of tile_y x tile_x outputs; its
-// window is the tile plus t cells on all four sides, row-major in shared
-// memory with a row stride of tile_x + 2t. A step's valid region is cut
-// into work items of one column by kSeg rows; consecutive threads take
-// consecutive columns, so a warp's shared accesses are conflict-free (a
-// warp that straddles two row segments pays at most two-way). An item
-// loads its rows and the two rows around them, three columns wide, into
-// registers first (3.25 loads a cell for the star, 3.75 for the box,
-// where a cell read straight from shared memory would take 4 and 8),
-// then computes and stores its kSeg cells: the loads of an item do not
-// wait on its stores.
+// A register-streamed wavefront, one warp a block and no shared memory.
+// The warp owns a strip of 32 * kCols2 window columns (each lane kCols2
+// neighbouring columns) and marches down the rows of its tile plus
+// a t-row apron above and below; the strip's outputs are its window less
+// t columns a side (112 of 128 at t = 8). Level v of row j needs level
+// v - 1 of rows j - 1, j and j + 1: each lane keeps, per level below t,
+// its columns' last three rows in registers (a three-slot ring, the slot
+// a row lands in fixed by its march step modulo 3, so no value moves), and
+// the columns beside its own come from the lanes beside it by warp
+// shuffles. At march step s the warp receives row s of level 0 (loaded
+// three steps ahead into registers) and for v = 1..t computes level v of
+// row s - v; level t is stored. Lanes at the strip's two ends read junk
+// through the shuffles, as the columns past the window: the valid region
+// of level v is the window less v columns a side, and the trapezoid keeps
+// junk out of it. Rows above and below the field wrap (periodic) or are
+// read wrapped and never cross the frozen dirichlet ring. Only the strips
+// whose march holds a ring cell test for it (kFreeze), by selects; their
+// tiles are dealt out first (edge_first), so that these slower blocks do
+// not trail the last wave.
+//
+// What bounds it: a pass reads and writes the field once, for t steps of
+// 4 (star) or 8 (box) operations a cell; the card's f32 rate is far
+// above that, and the instructions a cell (the operations, 1/2 or 3/2
+// shuffles, no shared memory, no barrier) are what is left. The apron
+// costs 2t of 32 * kCols2 columns and 2t rows of a tile's march.
 // ---------------------------------------------------------------------------
-constexpr int kThreads2 = 256;
-constexpr int kSeg = 8;
+constexpr int kWarp = 32;
+// the columns a lane holds: one 16-byte f32 vector
+constexpr int kCols2 = 4;
+constexpr unsigned kFullMask = 0xffffffffu;
+// the warps (blocks) of the 2D kernel an SM holds at least: its
+// registers capped to fit them (168; ptxas then spills a few words in the
+// dirichlet forms; uncapped, the box form ran slower and the star no
+// faster)
+constexpr int kWarps2 = 12;
+
+// a rounded down to a multiple of k (k > 0), for any sign of a
+__host__ __device__ __forceinline__ int floor_to(int a, int k) {
+  return (a >= 0 ? a / k : -((-a + k - 1) / k)) * k;
+}
 
 // the 8-neighbour sum of the golden (box.cu's box8)
 __device__ __forceinline__ float box8(float up, float down, float left,
@@ -278,144 +302,204 @@ __device__ __forceinline__ float box8(float up, float down, float left,
                    __fadd_rn(__fadd_rn(ul, dr), __fadd_rn(ur, dl)));
 }
 
-// One work item: column c, rows [rs, re) of a step, src -> dst. w[k] holds
-// row rs - 1 + k, columns c - 1, c, c + 1. kFull: the item has all kSeg
-// rows (re == rs + kSeg), so no row is past the window's last and no
-// output needs a bound test; otherwise rows past the last are clamped
-// onto it (they feed no output). kFreeze: cells of the global dirichlet
-// ring (edge_col, or row gy == 0 or ny - 1) keep their value.
-template <bool kFreeze, bool kBox, bool kFull>
-__device__ __forceinline__ void column_item(const float* src, float* dst,
-                                            int wy, int wx, int c, int rs,
-                                            int re, int y0, int ny,
-                                            bool edge_col) {
-  float w[kSeg + 2][3];
+// The neighbours of a lane's kC cells in a row held across the warp: the
+// column left of its first and right of its last, from the lanes beside.
+template <int kC>
+__device__ __forceinline__ void sides(const float (&r)[kC], float& left,
+                                      float& right) {
+  left = __shfl_up_sync(kFullMask, r[kC - 1], 1);
+  right = __shfl_down_sync(kFullMask, r[0], 1);
+}
+
+// One strip of a tile: window columns [xw, xw + 32 * kC), outputs
+// [xo, xs) of the rows [yb, ye). kFreeze: the march holds a cell of the
+// global dirichlet ring (warp-uniform; the other strips skip the tests).
+template <typename Tin, typename Tout, bool kBox, bool kFreeze>
+__device__ __forceinline__ void multi2d_strip(const Tin* __restrict__ u,
+                                              Tout* __restrict__ out, int ny,
+                                              int nx, int t, int yb, int ye,
+                                              int xw, int xo, int xs,
+                                              bool vec_in, bool vec_out) {
+  constexpr int kC = kCols2;
+  constexpr int kL = kTMax2;
+  using VecIn = Vec<Tin, kC>;
+  using VecOut = Vec<Tout, kC>;
+  const int gx0 = xw + static_cast<int>(threadIdx.x) * kC;
+  // a lane whose columns all lie in the field loads them as one vector;
+  // the others load kC scalars at their wrapped columns
+  const bool vload = vec_in && gx0 >= 0 && gx0 + kC <= nx;
+  int gc[kC];
+  unsigned ring = 0;  // bit c: column gx0 + c is on the ring
+  unsigned own = 0;   // bit c: column gx0 + c is an output of the strip
 #pragma unroll
-  for (int k = 0; k < kSeg + 2; ++k) {
-    const float* p =
-        src + (kFull ? rs - 1 + k : min(rs - 1 + k, wy - 1)) * wx + c;
-    w[k][1] = p[0];
-    if (kBox || (k > 0 && k < kSeg + 1)) {
-      w[k][0] = p[-1];
-      w[k][2] = p[1];
+  for (int c = 0; c < kC; ++c) {
+    const int gx = gx0 + c;
+    gc[c] = static_cast<int>(wrap_any(gx, nx));
+    if (kFreeze && (gx == 0 || gx == nx - 1)) ring |= 1u << c;
+    if (gx >= xo && gx < xs) own |= 1u << c;
+  }
+  const bool vstore = vec_out && own == (1u << kC) - 1;
+  const int r_lo = yb - t;  // the row of level 0 at march step 0
+  const int steps = ye - yb + 2 * t;
+  auto load = [&](int s, VecIn& dst) {
+    if (s >= steps) return;
+    // the row wrapped into the field (a loop: the march's rows lie at most
+    // t beyond it, and a field may be fewer rows than t)
+    int gy = r_lo + s;
+    while (gy < 0) gy += ny;
+    while (gy >= ny) gy -= ny;
+    const Tin* row = u + static_cast<int64_t>(gy) * nx;
+    if (vload) {
+      dst = *reinterpret_cast<const VecIn*>(row + gx0);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) dst.e[c] = row[gc[c]];
+    }
+  };
+  auto store = [&](int gy, const float (&res)[kC]) {
+    Tout* row = out + static_cast<int64_t>(gy) * nx + gx0;
+    if (vstore) {
+      VecOut r;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) r.e[c] = narrow<Tout>(res[c]);
+      *reinterpret_cast<VecOut*>(row) = r;
+    } else {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        if (own >> c & 1u) row[c] = narrow<Tout>(res[c]);
+      }
+    }
+  };
+  // rows of level 0 ahead, by march step modulo 3
+  VecIn ahead[3];
+  load(0, ahead[0]);
+  load(1, ahead[1]);
+  load(2, ahead[2]);
+  // h[v][k]: level v of the row of march step k modulo 3 (level 0 the
+  // input); a level's rows lag its step by v
+  float h[kL][3][kC];
+#pragma unroll
+  for (int v = 0; v < kL; ++v) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) h[v][k][c] = 0.0f;
     }
   }
+  auto step = [&](auto slot, int s) {
+    constexpr int kP = decltype(slot)::value;  // s modulo 3
+    constexpr int kOld = (kP + 1) % 3;         // two steps back
+    constexpr int kMid = (kP + 2) % 3;         // one step back
 #pragma unroll
-  for (int k = 1; k <= kSeg; ++k) {
-    const int r = rs - 1 + k;
-    if (kFull || r < re) {
-      const int gy = y0 + r;
-      float v;
-      if (kFreeze && (edge_col || gy == 0 || gy == ny - 1)) {
-        v = w[k][1];
-      } else if (kBox) {
-        v = __fmul_rn(box8(w[k - 1][1], w[k + 1][1], w[k][0], w[k][2],
-                           w[k - 1][0], w[k - 1][2], w[k + 1][0],
-                           w[k + 1][2]),
-                      0.125f);
+    for (int c = 0; c < kC; ++c) h[0][kP][c] = widen(ahead[kP].e[c]);
+    load(s + 3, ahead[kP]);
+#pragma unroll
+    for (int v = 1; v <= kL; ++v) {
+      if (v > t) break;
+      // level v of row gy from level v - 1 of rows gy - 1, gy, gy + 1
+      const int gy = r_lo + s - v;
+      const float(&up)[kC] = h[v - 1][kOld];
+      const float(&mid)[kC] = h[v - 1][kMid];
+      const float(&down)[kC] = h[v - 1][kP];
+      float ml, mr;
+      sides(mid, ml, mr);
+      float ul = 0.0f, ur = 0.0f, dl = 0.0f, dr = 0.0f;
+      if (kBox) {
+        sides(up, ul, ur);
+        sides(down, dl, dr);
+      }
+      // a ring cell keeps its value: a select, not a branch, so that the
+      // levels' chain has no reconvergence point
+      const bool ring_row = kFreeze && (gy == 0 || gy == ny - 1);
+      float res[kC];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const float left = c > 0 ? mid[c - 1] : ml;
+        const float right = c < kC - 1 ? mid[c + 1] : mr;
+        if (kBox) {
+          res[c] = __fmul_rn(
+              box8(up[c], down[c], left, right, c > 0 ? up[c - 1] : ul,
+                   c < kC - 1 ? up[c + 1] : ur, c > 0 ? down[c - 1] : dl,
+                   c < kC - 1 ? down[c + 1] : dr),
+              0.125f);
+        } else {
+          res[c] = __fmul_rn(__fadd_rn(__fadd_rn(up[c], down[c]),
+                                       __fadd_rn(left, right)),
+                             0.25f);
+        }
+        if (kFreeze && (ring_row || (ring >> c & 1u))) res[c] = mid[c];
+      }
+      if (v == t) {
+        if (gy >= yb && gy < ye) store(gy, res);
       } else {
-        v = __fmul_rn(__fadd_rn(__fadd_rn(w[k - 1][1], w[k + 1][1]),
-                                __fadd_rn(w[k][0], w[k][2])),
-                      0.25f);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) h[v < kL ? v : kL - 1][kP][c] = res[c];
       }
-      dst[r * wx + c] = v;
     }
+  };
+  // whole rounds of three steps: a step past the last loads nothing and
+  // stores no row
+  for (int s = 0; s < steps; s += 3) {
+    step(std::integral_constant<int, 0>{}, s);
+    step(std::integral_constant<int, 1>{}, s + 1);
+    step(std::integral_constant<int, 2>{}, s + 2);
   }
 }
 
-// One step of the window: src -> dst over rows and columns [s, w - s).
-// (y0, x0) is the global cell of window cell (0, 0). kFreeze: the window
-// holds a cell of the global dirichlet ring (block-uniform; the other
-// blocks skip the test).
-template <bool kFreeze, bool kBox>
-__device__ __forceinline__ void window_step(const float* src, float* dst,
-                                            int wy, int wx, int s, int y0,
-                                            int x0, int ny, int nx) {
-  const int ncols = wx - 2 * s;
-  const int nrows = wy - 2 * s;
-  const int items = ncols * ((nrows + kSeg - 1) / kSeg);
-  // item = seg * ncols + col, advanced by kThreads2 without a division
-  const int dseg = kThreads2 / ncols;
-  const int dcol = kThreads2 % ncols;
-  int seg = threadIdx.x / ncols;
-  int col = threadIdx.x % ncols;
-  for (int item = threadIdx.x; item < items; item += kThreads2) {
-    const int c = s + col;
-    const int rs = s + seg * kSeg;  // first row of the item
-    const int re = min(rs + kSeg, wy - s);
-    col += dcol;
-    seg += dseg;
-    if (col >= ncols) {
-      col -= ncols;
-      ++seg;
-    }
-    const int gx = x0 + c;
-    const bool edge_col = kFreeze && (gx == 0 || gx == nx - 1);
-    if (re == rs + kSeg) {
-      column_item<kFreeze, kBox, true>(src, dst, wy, wx, c, rs, re, y0, ny,
-                                       edge_col);
-    } else {
-      column_item<kFreeze, kBox, false>(src, dst, wy, wx, c, rs, re, y0, ny,
-                                        edge_col);
-    }
+// The tile (bx, by) of the block numbered (bx, by) in the grid, so that
+// the tiles of the outermost ring of tiles, whose strips hold the
+// dirichlet ring and take longer, are dealt out first and not left to
+// the last wave: first the top and bottom rows of tiles, then the left and
+// right columns, then the rest by rows.
+__device__ __forceinline__ void edge_first(int& bx, int& by) {
+  const int nx = gridDim.x;
+  const int ny = gridDim.y;
+  if (nx <= 2 || ny <= 2) return;
+  int i = by * nx + bx;
+  if (i < 2 * nx) {
+    by = i < nx ? 0 : ny - 1;
+    bx = i % nx;
+    return;
   }
+  i -= 2 * nx;
+  if (i < 2 * (ny - 2)) {
+    by = 1 + i / 2;
+    bx = i % 2 == 0 ? 0 : nx - 1;
+    return;
+  }
+  i -= 2 * (ny - 2);
+  by = 1 + i / (nx - 2);
+  bx = 1 + i % (nx - 2);
 }
 
+// A block (one warp) owns a tile of tile_y x tile_x outputs and covers it
+// in strips of at most 32 * kC - 2t columns, their windows starting on a
+// multiple of kC columns so that the lanes' vectors are aligned.
 template <typename Tin, typename Tout, bool kPeriodic, bool kBox>
-__global__ void __launch_bounds__(kThreads2)
+__global__ void __launch_bounds__(kWarp, kWarps2)
     multi2d_kernel(const Tin* __restrict__ u, Tout* __restrict__ out, int ny,
-                   int nx, int tile_y, int tile_x, int t) {
-  extern __shared__ float smem[];
-  const int wy = tile_y + 2 * t;
-  const int wx = tile_x + 2 * t;
-  float* a = smem;
-  float* b = smem + wy * wx;
-  // global row and column of window cell (0, 0)
-  const int y0 = static_cast<int>(blockIdx.y) * tile_y - t;
-  const int x0 = static_cast<int>(blockIdx.x) * tile_x - t;
-  const int cells = wy * wx;
-  for (int i0 = threadIdx.x; i0 < cells; i0 += kBatch * kThreads2) {
-    float c[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int i = i0 + j * kThreads2;
-      if (i < cells) {
-        const int r = i / wx;
-        c[j] = widen(
-            u[wrap_any(y0 + r, ny) * nx + wrap_any(x0 + i - r * wx, nx)]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      if (i0 + j * kThreads2 < cells) a[i0 + j * kThreads2] = c[j];
-    }
-  }
-  __syncthreads();
-  // does the window hold a cell of the global dirichlet ring?
-  const bool freeze = !kPeriodic && (y0 <= 0 || y0 + wy >= ny || x0 <= 0 ||
-                                     x0 + wx >= nx);
-  for (int s = 1; s <= t; ++s) {
-    if (freeze) {
-      window_step<true, kBox>(a, b, wy, wx, s, y0, x0, ny, nx);
+                   int nx, int tile_y, int tile_x, int t, bool vec_in,
+                   bool vec_out) {
+  constexpr int kW = kWarp * kCols2;
+  int bx = blockIdx.x;
+  int by = blockIdx.y;
+  if (!kPeriodic) edge_first(bx, by);
+  const int yb = by * tile_y;
+  const int ye = min(yb + tile_y, ny);
+  const int xb = bx * tile_x;
+  const int xe = min(xb + tile_x, nx);
+  const bool rows_ring = !kPeriodic && (yb - t <= 0 || ye + t >= ny);
+  for (int xo = xb; xo < xe;) {
+    const int xw = floor_to(xo - t, kCols2);
+    const int xs = min(xe, xw + kW - t);
+    if (!kPeriodic && (rows_ring || xw <= 0 || xw + kW >= nx)) {
+      multi2d_strip<Tin, Tout, kBox, true>(
+          u, out, ny, nx, t, yb, ye, xw, xo, xs, vec_in, vec_out);
     } else {
-      window_step<false, kBox>(a, b, wy, wx, s, y0, x0, ny, nx);
+      multi2d_strip<Tin, Tout, kBox, false>(
+          u, out, ny, nx, t, yb, ye, xw, xo, xs, vec_in, vec_out);
     }
-    __syncthreads();
-    float* tmp = a;
-    a = b;
-    b = tmp;
-  }
-  const int tx = threadIdx.x % 32;
-  const int ty = threadIdx.x / 32;
-  for (int r = ty; r < tile_y; r += kThreads2 / 32) {
-    const int gy = y0 + t + r;
-    if (gy >= ny) break;
-    Tout* row = out + static_cast<int64_t>(gy) * nx;
-    for (int c = tx; c < tile_x; c += 32) {
-      const int gx = x0 + t + c;
-      if (gx >= nx) break;
-      row[gx] = narrow<Tout>(a[(r + t) * wx + c + t]);
-    }
+    xo = xs;
   }
 }
 
@@ -432,156 +516,203 @@ __global__ void __launch_bounds__(kThreads2)
 // plus a kT-cell apron on every side (and kT planes more at each end of
 // the range). A thread owns kRows3 consecutive window rows of one column.
 // Level v of plane j needs level v - 1 of planes j - 1, j and j + 1: the
-// thread keeps, per level, its cells' last two planes in registers (the z
-// neighbours, and the y neighbours inside its rows), and the block keeps,
-// per level, the window's two newest planes in shared memory, plane j at
-// parity j & 1 (the x neighbours, and the y neighbours across two
-// threads' rows). At march step k the thread loads level 0 of plane k + 1
-// ahead (its latency hides behind the step), and for v = 1..kT publishes
-// level v - 1 of plane k - v + 1 and computes level v of plane k - v from
-// level v - 1 of plane k - v, which the step before published in the other
-// parity: one barrier a step, where a single plane a level would need one
-// a level. Level v is valid on the window shrunk by v cells a side
-// and on the planes of the range widened by kT - v; the rest of the window
-// computes nothing. Every level keeps the global shell (the y/x ring and
-// the planes 0 and nz - 1) at its previous level's value, as the TPU
-// kernel re-freezes it each level: a frozen cell is an information
-// barrier, so no cell outside the field is ever read. kT levels a launch;
-// the wrapper chains more through an f32 scratch field.
+// thread keeps, per level, its cells of the newest complete plane in
+// registers (the y neighbours inside its rows and the cells' own value),
+// and the block keeps, per level, the window's two newest planes in
+// shared memory (the x neighbours, the y neighbours across two threads'
+// rows, and, read back by the thread that wrote them, the cells' own
+// older plane). The planes lie at a fixed row stride (kWinX) with a spare
+// row above and below, so that every shared offset is a constant and
+// every cell's neighbours are in bounds. At march step k the thread
+// receives level 0 of plane k (loaded one step ahead, two at t = 1), and
+// for v = 1..kT publishes level v - 1 of plane k - v + 1 and computes
+// level v of plane k - v from level v - 1 of plane k - v, which the step
+// before published in the other parity: one barrier a step. Every cell of
+// the window computes every level: level v is valid on the window shrunk
+// by v cells a side and on the planes of the range widened by kT - v, and
+// the trapezoid keeps the rest out of it. Every level keeps the global
+// shell (the y/x ring and the planes 0 and nz - 1) at its previous
+// level's value, as the TPU kernel re-freezes it each level: a frozen
+// cell is an information barrier, so no cell outside the field is read.
+// Blocks whose window holds no cell of the y/x shell and none outside the
+// field (kEdge false) skip the per-cell ring and field tests; the others
+// freeze their ring cells and never load a cell outside the field. kT
+// levels a launch; the wrapper chains more through an f32 scratch field.
 //
 // What bounds it: a pass reads and writes the field once (2 * N * itemsize
-// bytes) for t steps of 6 operations a cell. The apron costs on top: the
-// window's (1 + 2t / tile)^2 of the tile's loads (from L2 mostly: the
-// neighbouring tiles read the same cells), and levels below t computed on
-// the wider windows; and the block's barrier a plane. On the H100 a level
-// costs most (PERF.md), so the default tile is the largest window a block
-// holds: 56 x 56 outputs, 64 x 64 cells at t = 4.
+// bytes) for t steps of 6 operations a cell. On top: the window's cells
+// beyond the tile, computed at every level and loaded (from L2 mostly:
+// the neighbouring tiles read the same cells); the shared-memory traffic
+// of a cell a level (a store, its older plane, its x neighbours); and the
+// block's barrier a plane. A block's barrier stalls all its warps, so two
+// blocks share an SM (kMaxThreads3 threads of at most 64 registers each):
+// while one waits, the other computes. That bounds the window, 32 x 64
+// cells (a 24 x 56 tile at t = 4), and the per-thread state, kT * kRows3
+// floats. The z ranges are chosen so that the blocks fill whole waves of
+// the SMs.
 // ---------------------------------------------------------------------------
 // the most steps one launch runs (the wrapper's T_MAX for 3D): one kernel
 // instantiation each
 constexpr int kTMax3 = 4;
-// the window rows a thread owns, and the most threads a block has
+// the window rows a thread owns; the most window a block holds, kWinX
+// columns by kWinY rows, whose planes lie in shared memory at a fixed row
+// stride (every shared offset a constant); the threads that makes, two
+// blocks to an SM (64 registers a thread)
 constexpr int kRows3 = 4;
-constexpr int kMaxThreads3 = 1024;
+constexpr int kWinX = 64;
+constexpr int kWinY = 32;
+constexpr int kMaxThreads3 = kWinX * kWinY / kRows3;
+// a plane of the window with a spare row above and below
+constexpr int kPlane3 = kWinX * (kWinY + 2);
 
-template <typename Tin, typename Tout, int kT>
-__global__ void __launch_bounds__(kMaxThreads3)
-    jacobi3d_multi_kernel(const Tin* __restrict__ u, Tout* __restrict__ out,
-                          int nz, int ny, int nx, int tile_y, int tile_x) {
-  // plane j of level v (0 .. kT - 1) of the window at
-  // lev + (2 * v + (j & 1)) * cells
-  extern __shared__ float lev[];
+// The march of one block; kEdge: its window holds a cell of the y/x ring
+// or one outside the field (block-uniform).
+template <typename Tin, typename Tout, int kT, bool kEdge>
+__device__ __forceinline__ void multi3d_march(const Tin* __restrict__ u,
+                                              Tout* __restrict__ out,
+                                              float* lev, int nz, int ny,
+                                              int nx, int tile_y,
+                                              int tile_x) {
   const float sixth = static_cast<float>(1.0 / 6.0);
-  const int wx = blockDim.x;
-  const int wy = tile_y + 2 * kT;
-  const int cells = wx * blockDim.y * kRows3;
   const int tx = threadIdx.x;
   const int r0 = threadIdx.y * kRows3;  // this thread's first window row
   const int gx = static_cast<int>(blockIdx.x) * tile_x - kT + tx;
   const int gy0 = static_cast<int>(blockIdx.y) * tile_y - kT + r0;
-  const int dx = min(tx, wx - 1 - tx);
-  // per row: the levels the cell takes part in (v <= dep; -1: none, the
-  // cell lies outside the field or the window), and whether it is on the
-  // global y/x ring (bit i)
-  int dep[kRows3];
+  // per row (bit i): the cell lies in the field (it is loaded), on the
+  // global y/x ring (it keeps its value), in the tile (it is stored)
+  unsigned inside = 0;
   unsigned ring = 0;
+  unsigned own = 0;
+  const bool col_own = tx >= kT && tx < kT + tile_x;
 #pragma unroll
   for (int i = 0; i < kRows3; ++i) {
     const int r = r0 + i;
     const int gy = gy0 + i;
-    const bool in = gx >= 0 && gx < nx && gy >= 0 && gy < ny && r < wy;
-    dep[i] = in ? min(dx, min(r, wy - 1 - r)) : -1;
-    if (gy == 0 || gy == ny - 1 || gx == 0 || gx == nx - 1) ring |= 1u << i;
+    if (gx >= 0 && gx < nx && gy >= 0 && gy < ny) {
+      inside |= 1u << i;
+      if (gy == 0 || gy == ny - 1 || gx == 0 || gx == nx - 1) {
+        ring |= 1u << i;
+      }
+      if (col_own && r >= kT && r < kT + tile_y) own |= 1u << i;
+    }
   }
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   const int64_t col = static_cast<int64_t>(gy0) * nx + gx;  // row r0's cell
   const int z0 = static_cast<int>(int64_t{nz} * blockIdx.z / gridDim.z);
   const int z1 = static_cast<int>(int64_t{nz} * (blockIdx.z + 1) / gridDim.z);
-  // level v is computed on the planes [lo(v), hi(v))
-  auto lo = [&](int v) { return max(z0 - kT + v, 0); };
-  auto hi = [&](int v) { return min(z1 + kT - v, nz); };
+  const int k0 = max(z0 - kT, 0);      // the first plane of level 0
+  const int k1 = min(z1 + kT, nz);     // and one past its last
   auto load = [&](int p, float (&dst)[kRows3]) {
+    if (p >= k1) return;
+    const Tin* src = u + p * plane + col;
 #pragma unroll
     for (int i = 0; i < kRows3; ++i) {
-      if (dep[i] >= 0) dst[i] = widen(u[p * plane + col + i * nx]);
+      if (!kEdge || (inside >> i & 1u)) dst[i] = widen(src[i * nx]);
     }
   };
-  // per level below kT: this thread's cells' last two planes (prev the
-  // older)
-  float prev[kT][kRows3];
-  float cur[kT][kRows3];
-  float ahead[kRows3];
+  // level 0 of the planes ahead, by march step modulo kAhead: two at
+  // t = 1, where a step is short beside the loads' latency, one above
+  constexpr int kAhead = kT == 1 ? 2 : 1;
+  float ahead[kAhead][kRows3];
 #pragma unroll
-  for (int i = 0; i < kRows3; ++i) {
-    ahead[i] = 0.0f;
+  for (int d = 0; d < kAhead; ++d) {
 #pragma unroll
-    for (int v = 0; v < kT; ++v) prev[v][i] = cur[v][i] = 0.0f;
+    for (int i = 0; i < kRows3; ++i) ahead[d][i] = 0.0f;
+    load(k0 + d, ahead[d]);
   }
-  if (lo(0) < hi(0)) load(lo(0), ahead);
-  for (int k = lo(0); k < z1 + kT; ++k) {
-    // level 0 of plane k, and the load of plane k + 1
+  // per level below kT: this thread's cells of the level's newest
+  // complete plane (plane j when level v + 1 computes plane j)
+  float cur[kT][kRows3];
+#pragma unroll
+  for (int v = 0; v < kT; ++v) {
+#pragma unroll
+    for (int i = 0; i < kRows3; ++i) cur[v][i] = 0.0f;
+  }
+  float* const at = lev + (r0 + 1) * kWinX + tx;  // this thread's first cell
+  auto step = [&](auto parity, int s) {
+    constexpr int kQ = decltype(parity)::value;  // s modulo 2
+    const int k = k0 + s;
     float fresh[kRows3];
 #pragma unroll
-    for (int i = 0; i < kRows3; ++i) fresh[i] = ahead[i];
-    bool have = k < hi(0);
-    if (k + 1 < hi(0)) load(k + 1, ahead);
+    for (int i = 0; i < kRows3; ++i) fresh[i] = ahead[kQ % kAhead][i];
+    load(k + kAhead, ahead[kQ % kAhead]);
 #pragma unroll
     for (int v = 1; v <= kT; ++v) {
       const int j = k - v;
-      const bool act = j >= lo(v) && j < hi(v);
-      const bool face = j == 0 || j == nz - 1;
-      // level v - 1 of plane j + 1 (just computed) is published, and of
-      // plane j (published the step before) read, at this thread's first
-      // cell
-      const int at = r0 * wx + tx;
-      float* newer = lev + (2 * (v - 1) + ((j + 1) & 1)) * cells + at;
-      const float* below = lev + (2 * (v - 1) + (j & 1)) * cells + at;
-      if (have) {
+      // level v - 1 of plane j + 1 is published now, of plane j was the
+      // step before: parities by march step, (s - v + 1) and (s - v).
+      // Until now the first buffer held plane j - 1: each thread reads its
+      // own cells back (its z neighbours below) before it overwrites them.
+      float* newer = at + (2 * (v - 1) + ((kQ - v + 1) & 1)) * kPlane3;
+      const float* below = at + (2 * (v - 1) + ((kQ - v) & 1)) * kPlane3;
+      float(&mid)[kRows3] = cur[v - 1];
+      float older[kRows3];
 #pragma unroll
-        for (int i = 0; i < kRows3; ++i) newer[i * wx] = fresh[i];
+      for (int i = 0; i < kRows3; ++i) {
+        older[i] = newer[i * kWinX];
+        newer[i * kWinX] = fresh[i];
       }
+      const bool face = j == 0 || j == nz - 1;
       float res[kRows3];
 #pragma unroll
       for (int i = 0; i < kRows3; ++i) {
-        res[i] = 0.0f;
-        if (act && dep[i] >= v) {
-          if (face || (ring >> i & 1u)) {
-            res[i] = cur[v - 1][i];
-          } else {
-            const float ym = i > 0 ? cur[v - 1][i - 1] : below[-wx];
-            const float yp =
-                i < kRows3 - 1 ? cur[v - 1][i + 1] : below[kRows3 * wx];
-            res[i] = __fmul_rn(
-                __fadd_rn(__fadd_rn(__fadd_rn(prev[v - 1][i], fresh[i]),
-                                    __fadd_rn(ym, yp)),
-                          __fadd_rn(below[i * wx - 1], below[i * wx + 1])),
-                sixth);
-          }
+        res[i] = mid[i];
+        if (!face && !(kEdge && (ring >> i & 1u))) {
+          const float ym = i > 0 ? mid[i - 1] : below[-kWinX];
+          const float yp =
+              i < kRows3 - 1 ? mid[i + 1] : below[kRows3 * kWinX];
+          res[i] = __fmul_rn(
+              __fadd_rn(__fadd_rn(__fadd_rn(older[i], fresh[i]),
+                                  __fadd_rn(ym, yp)),
+                        __fadd_rn(below[i * kWinX - 1],
+                                  below[i * kWinX + 1])),
+              sixth);
         }
       }
-      if (have) {
+      // plane j + 1 is the newest complete plane of level v - 1 next step
 #pragma unroll
-        for (int i = 0; i < kRows3; ++i) {
-          prev[v - 1][i] = cur[v - 1][i];
-          cur[v - 1][i] = fresh[i];
-        }
+      for (int i = 0; i < kRows3; ++i) {
+        mid[i] = fresh[i];
+        fresh[i] = res[i];
       }
-#pragma unroll
-      for (int i = 0; i < kRows3; ++i) fresh[i] = res[i];
-      have = act;
     }
     const int j = k - kT;
     if (j >= z0 && j < z1) {
+      Tout* dst = out + j * plane + col;
 #pragma unroll
       for (int i = 0; i < kRows3; ++i) {
-        if (dep[i] >= kT) {
-          out[j * plane + col + i * nx] = narrow<Tout>(fresh[i]);
-        }
+        if (own >> i & 1u) dst[i * nx] = narrow<Tout>(fresh[i]);
       }
     }
     // this step's publications are visible, and its reads done before the
     // next step overwrites their parity
     __syncthreads();
+  };
+  // whole pairs of steps (the parities' offsets constant in each): a step
+  // past the last loads nothing and stores no plane
+  for (int s = 0; s < z1 + kT - k0; s += 2) {
+    step(std::integral_constant<int, 0>{}, s);
+    step(std::integral_constant<int, 1>{}, s + 1);
+  }
+}
+
+template <typename Tin, typename Tout, int kT>
+__global__ void __launch_bounds__(kMaxThreads3, 2)
+    jacobi3d_multi_kernel(const Tin* __restrict__ u, Tout* __restrict__ out,
+                          int nz, int ny, int nx, int tile_y, int tile_x) {
+  // plane j of level v (0 .. kT - 1) of the window at
+  // lev + (2 * v + parity(j)) * kPlane3
+  extern __shared__ float lev[];
+  const int gx = static_cast<int>(blockIdx.x) * tile_x - kT;
+  const int gy = static_cast<int>(blockIdx.y) * tile_y - kT;
+  const int rows = static_cast<int>(blockDim.y) * kRows3;
+  if (gx >= 1 && gx + static_cast<int>(blockDim.x) <= nx - 1 && gy >= 1 &&
+      gy + rows <= ny - 1) {
+    multi3d_march<Tin, Tout, kT, false>(u, out, lev, nz, ny, nx, tile_y,
+                                        tile_x);
+  } else {
+    multi3d_march<Tin, Tout, kT, true>(u, out, lev, nz, ny, nx, tile_y,
+                                       tile_x);
   }
 }
 
@@ -603,8 +734,9 @@ int launch1d_bc(const void* u, void* out, int64_t n, int tile, int t,
   static const int opted = allow_smem(kernel);
   if (opted != 0) return opted;
   const size_t smem = 2 * static_cast<size_t>(tile + 2 * t) * sizeof(float);
-  const bool vec_in = aligned16(u) && tile % (16 / sizeof(Tin)) == 0;
-  const bool vec_out = aligned16(out) && tile % (16 / sizeof(Tout)) == 0;
+  const bool vec_in = aligned_to(u, 16) && tile % (16 / sizeof(Tin)) == 0;
+  const bool vec_out =
+      aligned_to(out, 16) && tile % (16 / sizeof(Tout)) == 0;
   const int64_t blocks = (n + tile - 1) / tile;
   kernel<<<static_cast<unsigned>(blocks), kThreads1, smem, stream>>>(
       static_cast<const Tin*>(u), static_cast<Tout*>(out), n, tile, t, vec_in,
@@ -615,15 +747,14 @@ int launch1d_bc(const void* u, void* out, int64_t n, int tile, int t,
 template <typename Tin, typename Tout, bool kBox, bool kPeriodic>
 int launch2d_bc(const void* u, void* out, int ny, int nx, int tile_y,
                 int tile_x, int t, cudaStream_t stream) {
-  auto kernel = multi2d_kernel<Tin, Tout, kPeriodic, kBox>;
-  static const int opted = allow_smem(kernel);
-  if (opted != 0) return opted;
-  const size_t smem = 2 * static_cast<size_t>(tile_y + 2 * t) *
-                      (tile_x + 2 * t) * sizeof(float);
+  const bool vec_in =
+      aligned_to(u, kCols2 * sizeof(Tin)) && nx % kCols2 == 0;
+  const bool vec_out =
+      aligned_to(out, kCols2 * sizeof(Tout)) && nx % kCols2 == 0;
   const dim3 grid((nx + tile_x - 1) / tile_x, (ny + tile_y - 1) / tile_y);
-  kernel<<<grid, kThreads2, smem, stream>>>(
+  multi2d_kernel<Tin, Tout, kPeriodic, kBox><<<grid, kWarp, 0, stream>>>(
       static_cast<const Tin*>(u), static_cast<Tout*>(out), ny, nx, tile_y,
-      tile_x, t);
+      tile_x, t, vec_in, vec_out);
   return cudaGetLastError();
 }
 
@@ -661,17 +792,19 @@ template <bool kBox>
 int launch2d(const void* u, void* out, int ny, int nx, int in_dtype,
              int out_dtype, int periodic, int tile_y, int tile_x, int t,
              void* stream) {
-  const int64_t smem = 2LL * (tile_y + 2 * t) * (tile_x + 2 * t) * 4;
-  if (ny < 3 || nx < 3 || t < 1 || t > kTMax2 || tile_y < 1 || tile_x < 1 ||
-      smem > kMaxSmem || (ny + tile_y - 1) / tile_y > kMaxGridY) {
+  if (ny < 3 || nx < 3 || t < 1 || t > kTMax2 || tile_y < 1 || tile_x < 1) {
     return cudaErrorInvalidValue;
   }
+  // a tile larger than the field covers the same cells
+  tile_y = tile_y < ny ? tile_y : ny;
+  tile_x = tile_x < nx ? tile_x : nx;
+  if ((ny + tile_y - 1) / tile_y > kMaxGridY) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return with_dtypes(in_dtype, out_dtype, [&](auto ti, auto to) {
     using Tin = typename decltype(ti)::type;
     using Tout = typename decltype(to)::type;
-    return periodic ? launch2d_bc<Tin, Tout, kBox, true>(u, out, ny, nx,
-                                                         tile_y, tile_x, t, s)
+    return periodic ? launch2d_bc<Tin, Tout, kBox, true>(
+                          u, out, ny, nx, tile_y, tile_x, t, s)
                     : launch2d_bc<Tin, Tout, kBox, false>(
                           u, out, ny, nx, tile_y, tile_x, t, s);
   });
@@ -683,13 +816,11 @@ int launch3d_t(const void* u, void* out, int nz, int ny, int nx, int tile_y,
   auto kernel = jacobi3d_multi_kernel<Tin, Tout, kT>;
   static const int opted = allow_smem(kernel);
   if (opted != 0) return opted;
+  // the window's columns, and its rows in whole thread rows
   const dim3 block(tile_x + 2 * kT, (tile_y + 2 * kT + kRows3 - 1) / kRows3);
-  const size_t smem = static_cast<size_t>(2 * kT) * block.x * block.y *
-                      kRows3 * sizeof(float);
+  const size_t smem = static_cast<size_t>(2 * kT) * kPlane3 * sizeof(float);
   const int tiles_x = (nx + tile_x - 1) / tile_x;
   const int tiles_y = (ny + tile_y - 1) / tile_y;
-  // z ranges: enough for four waves of resident blocks (one leaves SMs
-  // idle behind the blocks' barriers); each adds 2 * kT planes of apron
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
@@ -702,12 +833,23 @@ int launch3d_t(const void* u, void* out, int nz, int ny, int nx, int tile_y,
         &per_sm, kernel, static_cast<int>(block.x * block.y), smem);
   }
   if (err != cudaSuccess) return err;
+  // z ranges: each adds 2 kT planes of apron, and the blocks run in waves
+  // of `resident`; take the count whose waves times planes a block is
+  // least (the first such, the fewest ranges)
   const int64_t tiles = static_cast<int64_t>(tiles_x) * tiles_y;
   const int64_t resident =
       static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  int64_t ranges = (4 * resident + tiles - 1) / tiles;
   const int64_t most = nz < kMaxGridY ? nz : kMaxGridY;
-  ranges = ranges < 1 ? 1 : (ranges > most ? most : ranges);
+  int64_t ranges = 1;
+  int64_t best = -1;
+  for (int64_t r = 1; r <= most && r <= 4 * resident; ++r) {
+    const int64_t waves = (tiles * r + resident - 1) / resident;
+    const int64_t cost = waves * ((nz + r - 1) / r + 2 * kT);
+    if (best < 0 || cost < best) {
+      best = cost;
+      ranges = r;
+    }
+  }
   const dim3 grid(tiles_x, tiles_y, static_cast<unsigned>(ranges));
   kernel<<<grid, block, smem, stream>>>(static_cast<const Tin*>(u),
                                         static_cast<Tout*>(out), nz, ny, nx,
@@ -781,10 +923,13 @@ int tc_jacobi3d_multi(const void* u, void* out, int nz, int ny, int nx,
                       int tile_x, int t, void* stream) {
   // dirichlet only, as the TPU arm: the frozen shell is the barrier
   if (nz < 2 || ny < 3 || nx < 3 || periodic || t < 1 || t > kTMax3 ||
-      tile_y < 1 || tile_x < 1 ||
-      static_cast<int64_t>(tile_x + 2 * t) *
-              ((tile_y + 2 * t + kRows3 - 1) / kRows3) >
-          kMaxThreads3 ||
+      tile_y < 1 || tile_x < 1) {
+    return cudaErrorInvalidValue;
+  }
+  // a tile larger than the field covers the same cells
+  tile_y = tile_y < ny ? tile_y : ny;
+  tile_x = tile_x < nx ? tile_x : nx;
+  if (tile_x + 2 * t > kWinX || tile_y + 2 * t > kWinY ||
       (ny + tile_y - 1) / tile_y > kMaxGridY) {
     return cudaErrorInvalidValue;
   }

@@ -84,10 +84,11 @@ from tpu_comm_torch.kernels.tiling import (
 #: rows of its 32-column strip each CUDA block owns when the caller
 #: passes no chunk; it sets the grid size, never the result
 STREAM_DEFAULT_ROWS = 128
-#: the output tile a CUDA block of the multi kernels (5-point and 9-point)
-#: owns when the caller passes none, rows and columns; it sets the grid,
-#: never the result
-MULTI_DEFAULT_TILE = (64, 64)
+#: the output tile a CUDA block (one warp) of the multi kernels (5-point
+#: and 9-point) owns when the caller passes none, rows and columns: 112
+#: columns are one warp's strip at t = 8 (128 window columns less the
+#: apron). It sets the grid, never the result.
+MULTI_DEFAULT_TILE = (128, 112)
 
 
 def default_chunk(shape: tuple) -> int:

@@ -43,11 +43,13 @@ from tpu_comm_torch.kernels import (
 from tpu_comm_torch.kernels import padded
 from tpu_comm_torch.kernels.reference import check_bc
 from tpu_comm_torch.kernels.tiling import (
+    MULTI_T_MAX,
     check_kernel_args,
     check_multi3d_bc,
     f32_compute,
     launch_multi,
     launch_stencil,
+    multi3d_default_tile,
     narrow_store,
 )
 
@@ -58,10 +60,12 @@ STREAM_DEFAULT_PLANES = 8
 #: the f32 constant of the golden (1/6 rounded once), as an exact float
 SIXTH = float(np.float32(1.0 / 6.0))
 #: the output tile a CUDA block of the wavefront owns when the caller
-#: passes none, rows and columns: with the apron of the most steps a
-#: launch runs (``tiling.MULTI_T_MAX[3]``) a window of 64 x 64 cells, 1024
-#: threads of 4 rows each. It sets the grid, never the result.
-MULTI_DEFAULT_TILE = (56, 56)
+#: passes none, rows and columns, at the most steps a launch runs
+#: (``tiling.MULTI_T_MAX[3]``): with its apron the most window a block
+#: holds, 32 x 64 cells, 512 threads of 4 rows each (at other steps
+#: ``tiling.multi3d_default_tile``).
+#: It sets the grid, never the result.
+MULTI_DEFAULT_TILE = multi3d_default_tile(MULTI_T_MAX[3])
 
 
 def default_chunk(shape: tuple) -> int:
@@ -152,7 +156,9 @@ def step_multi(u: torch.Tensor, bc: str = "dirichlet", t_steps: int = 4,
     CUDA tensor, ``step_multi_plain`` for a CPU tensor; dirichlet only, on
     either (JAX's default t is 4). A block owns a tile of
     ``rows_per_chunk`` x ``cols_per_chunk`` outputs (default
-    :data:`MULTI_DEFAULT_TILE`) and marches z. Writes into ``out`` (which
+    ``tiling.multi3d_default_tile`` at the pass's steps,
+    :data:`MULTI_DEFAULT_TILE` at 4; a tile larger than a block holds is cut,
+    ``tiling.multi3d_block_tile``) and marches z. Writes into ``out`` (which
     must not alias ``u``) when given. ``step_multi.launches`` counts
     kernel launches (more than one a pass beyond ``tiling.MULTI_T_MAX``
     steps)."""
@@ -161,9 +167,10 @@ def step_multi(u: torch.Tensor, bc: str = "dirichlet", t_steps: int = 4,
     if u.device.type == "cpu":
         return step_multi_plain(u, bc, t_steps, out)
     out = check_kernel_args(u, 3, out, min_extents=(2, 3, 3))
+    default = multi3d_default_tile(min(t_steps, MULTI_T_MAX[3]))
     tile = (
-        MULTI_DEFAULT_TILE[0] if rows_per_chunk is None else rows_per_chunk,
-        MULTI_DEFAULT_TILE[1] if cols_per_chunk is None else cols_per_chunk,
+        default[0] if rows_per_chunk is None else rows_per_chunk,
+        default[1] if cols_per_chunk is None else cols_per_chunk,
     )
     step_multi.launches += launch_multi("tc_jacobi3d_multi", u, out, bc,
                                         t_steps, tile)

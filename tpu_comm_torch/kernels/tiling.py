@@ -202,16 +202,21 @@ def launch_stencil(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
 
 
 #: the most steps one launch of ``csrc/multi.cu`` runs, by field rank
-#: (its kTMax1, kTMax2, kTMax3; in 3D one kernel instantiation a step
-#: count); a wrapper asked for more chains launches
-MULTI_T_MAX = {1: 256, 2: 16, 3: 4}
+#: (its kTMax1, kTMax2, kTMax3; in 2D the levels a lane's registers hold,
+#: in 3D one kernel instantiation a step count); a wrapper asked for more
+#: chains launches
+MULTI_T_MAX = {1: 256, 2: 8, 3: 4}
 #: the dynamic shared memory a block may use on sm_90 (``csrc/multi.cu``
 #: kMaxSmem)
 MAX_SMEM_BYTES = 232448
-#: the threads of a CUDA block (``csrc/multi.cu`` kMaxThreads3), and the
-#: window rows of one column a thread of the 3D wavefront owns (kRows3)
-MAX_BLOCK_THREADS = 1024
+#: the most window a 3D wavefront block holds, rows and columns
+#: (``csrc/multi.cu`` kWinY, kWinX: its planes lie in shared memory at a
+#: fixed row stride), the window rows of one column a thread owns
+#: (kRows3), and the threads that makes (kMaxThreads3; two blocks to an
+#: SM)
+MULTI3D_WINDOW = (32, 64)
 MULTI3D_ROWS = 4
+MULTI3D_MAX_THREADS = MULTI3D_WINDOW[0] * MULTI3D_WINDOW[1] // MULTI3D_ROWS
 #: grid.y is limited to 65535 blocks
 MAX_GRID_Y = 65535
 
@@ -351,27 +356,58 @@ def multi3d_threads(tile: tuple[int, int], halo: int) -> int:
     return (tile[1] + 2 * halo) * -(-(tile[0] + 2 * halo) // MULTI3D_ROWS)
 
 
+def multi3d_block_tile(tile: tuple[int, int], halo: int,
+                       extents: tuple[int, int]) -> tuple[int, int]:
+    """The tile a 3D wavefront block takes for a requested ``tile`` of a
+    field whose planes are ``extents`` (rows, columns): the tile cut to
+    the field and to the most a block's window holds with its
+    ``halo``-cell apron (:data:`MULTI3D_WINDOW`). The tile sets the grid,
+    never the result, so every tile of at least one cell is taken."""
+    if min(tile) < 1:
+        raise ValueError(f"the tile must be >= 1 cell a side, got {tile}")
+    return tuple(min(n, e, w - 2 * halo)
+                 for n, e, w in zip(tile, extents, MULTI3D_WINDOW))
+
+
+def multi3d_default_tile(halo: int) -> tuple[int, int]:
+    """The tile a 3D wavefront block takes by default with a
+    ``halo``-cell apron: the largest whose window it holds, but at a
+    halo of 1 half the window's rows, so that four blocks of 256 threads
+    share an SM (a plane step is short there, and smaller blocks' barriers
+    stall fewer warps; it timed faster on the H100)."""
+    rows, cols = MULTI3D_WINDOW
+    if halo == 1:
+        rows //= 2
+    return rows - 2 * halo, cols - 2 * halo
+
+
 def multi_smem(dim: int, tile: tuple[int, ...], halo: int) -> int:
-    """The shared memory of a multi kernel's block: two float32 buffers of
-    the window (1D, 2D), or two float32 window planes (their rows rounded
-    up to whole thread rows) for each of the ``halo`` levels below the
-    last (3D)."""
+    """The shared memory of a 1D or 3D multi kernel's block: two float32
+    buffers of the window (1D), or two float32 planes of the most window a
+    block holds, each with a spare row above and below, for each of the
+    ``halo`` levels below the last (3D)."""
     if dim == 3:
-        return 2 * halo * 4 * MULTI3D_ROWS * multi3d_threads(tile, halo)
-    return 2 * 4 * math.prod(n + 2 * halo for n in tile)
+        return 2 * halo * 4 * MULTI3D_WINDOW[1] * (MULTI3D_WINDOW[0] + 2)
+    return 2 * 4 * (tile[0] + 2 * halo)
 
 
 def check_multi_tile(dim: int, tile: tuple[int, ...], halo: int) -> None:
-    """Refuse a tile whose window does not fit a block: its shared memory,
-    and in 3D its threads too (:func:`multi3d_threads`)."""
+    """Refuse a block tile whose window does not fit a block: in 3D the
+    window a block holds (:data:`MULTI3D_WINDOW`; :func:`multi3d_block_tile`
+    cuts a requested tile to one that fits), in 1D its shared memory. A 2D tile
+    of any size fits: its block is one warp that walks the tile."""
     if min(tile) < 1:
         raise ValueError(f"the tile must be >= 1 cell a side, got {tile}")
-    if dim == 3 and multi3d_threads(tile, halo) > MAX_BLOCK_THREADS:
+    if dim == 2:
+        return
+    if dim == 3 and any(n + 2 * halo > w
+                        for n, w in zip(tile, MULTI3D_WINDOW)):
         raise ValueError(
             f"tile {tile} with its {halo}-cell apron needs "
             f"{multi3d_threads(tile, halo)} threads, {MULTI3D_ROWS} window "
-            f"rows of one column a thread; a block has at most "
-            f"{MAX_BLOCK_THREADS}"
+            f"rows of one column a thread; a block holds a window of at "
+            f"most {MULTI3D_WINDOW[0]} x {MULTI3D_WINDOW[1]} cells, "
+            f"{MULTI3D_MAX_THREADS} threads"
         )
     smem = multi_smem(dim, tile, halo)
     if smem > MAX_SMEM_BYTES:
@@ -390,10 +426,12 @@ def launch_multi(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
     the pass is chained: a launch from ``u`` into an f32 scratch field,
     launches between two f32 fields, and one from f32 into ``out``, so the
     field is narrowed once, as in a single launch. ``tile`` is rows,
-    columns in 3D too (the kernel marches z). Returns the number of
-    launches."""
+    columns in 3D too (the kernel marches z), cut to what a block holds
+    by :func:`multi3d_block_tile`. Returns the number of launches."""
     steps = multi_passes(t_steps, MULTI_T_MAX[u.dim()])
     halo = max(steps)
+    if u.dim() == 3:
+        tile = multi3d_block_tile(tile, halo, u.shape[1:])
     check_multi_tile(u.dim(), tile, halo)
     if u.dim() > 1 and -(-u.shape[-2] // tile[0]) > MAX_GRID_Y:
         raise ValueError(
