@@ -32,8 +32,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
      at full size, ragged and tiny shapes (one cell, one row, one
      column), a non-default chunk, and the wrappers' refusal of a bad
      ghost or an aliased output;
-   - the face pack: the four packed faces x every dtype at 512^3 and at
-     ragged shapes;
+   - the face pack: the four packed faces x every dtype at 512^3, at
+     ragged shapes, at a block for each path of the kernel (y rows as
+     16-byte vectors and cell by cell, nx = 1, ny = 1, nz > 65535) and
+     on views off the 16-byte grid;
    - membw: every op a kernel serves x every dtype x aliased on/off x the
      default and a non-default chunk, at 2^26 elements and at a ragged
      size; the stream copy also on an offset view off the 16-byte grid
@@ -83,7 +85,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    for the mesh ``multi`` arm one pass divided by t beside the block
    arm's step; the ghost-fed wave kernels with a convolution of the
    ghost-padded block as the library call; the mesh wave arm's step of
-   every stencil beside its kernel and its exchange;
+   every stencil beside its kernel and its exchange; the face pack in
+   turns (device time queued, and the wrapper's back-to-back call time),
+   also on a cold L2 and at narrower rows, and the 3D
+   block step on a mesh of one with ``--pack kernel`` and ``--pack
+   fused`` in turns with each other;
 6. the script's time, the ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, ...}`` line.
 
@@ -179,6 +185,14 @@ MAIN_RUNS = [(1, "auto"), (2, "auto"), (3, "auto"), (9, "auto"),
 PACK_KERNEL = ("pack_faces", "tpu_comm/kernels/pack.py:48")
 PACK_SOURCE = "tpu_comm_torch/csrc/pack.cu"
 PACK_RAGGED = [(1, 1, 1), (3, 5, 7), (19, 23, 45), (130, 9, 33)]
+#: a block for each path of the kernel: y rows as 16-byte vectors (one
+#: and several a row), y rows cell by cell (34 cells a row), nx = 1,
+#: ny = 1, and nz above grid.y's 65535 (cell by cell and vectors)
+PACK_PATHS = [(5, 7, 64), (3, 4, 8), (4, 6, 34), (7, 300, 1), (9, 1, 300),
+              (70000, 3, 5), (66000, 2, 8)]
+#: blocks packed from a view one cell past a 16-byte aligned base: the
+#: y rows cell by cell though their length is whole vectors
+PACK_OFF_GRID = [(64, 64, 64), (SIZES[3],) * 3]
 #: DRAM sector: what one x-face element costs to read (one per row of nx)
 SECTOR_BYTES = 32
 #: the mesh runs of phase 4: (key, --impl, --pack), each in both bc
@@ -392,6 +406,19 @@ def queued_ms(torch, fn, reps: int, filler) -> tuple[float, bool]:
     return start.elapsed_time(end) / reps, queued
 
 
+def l2_fetch_granularity(libs) -> int:
+    """The most bytes the card's L2 fetches from DRAM for one missed
+    access (``cudaLimitMaxL2FetchGranularity``, read through
+    ``csrc/pack.cu``; never set)."""
+    import ctypes
+
+    value = ctypes.c_size_t()
+    code = libs["pack"].tc_l2_fetch_granularity(ctypes.byref(value))
+    if code:
+        fail(f"cudaDeviceGetLimit(cudaLimitMaxL2FetchGranularity): {code}")
+    return value.value
+
+
 def check_kernels(torch, mods, arm: str) -> dict:
     """Phase 3: the ``arm`` kernel of each stencil it serves vs the plain
     version, bitwise; returns the max abs error per stencil key (0.0 when
@@ -448,24 +475,41 @@ def check_kernels(torch, mods, arm: str) -> dict:
 
 def check_pack(torch) -> float:
     """Phase 3, face pack: the kernel's four faces vs the plain version,
-    bitwise; returns the max abs error (0.0 when every case was equal)."""
+    bitwise, in every dtype, at 512^3 (where the warps stride over the
+    items), the ragged shapes, one block for each path of the kernel
+    (PACK_PATHS) and blocks whose base lies off the 16-byte grid
+    (PACK_OFF_GRID); returns the max abs error (0.0 when every case was
+    equal)."""
     from tpu_comm_torch.kernels import pack
 
     worst = 0.0
-    cases = [(SIZES[3],) * 3] + PACK_RAGGED
-    for shape in cases:
+    full = (SIZES[3],) * 3
+    cases = ([(full, None)] + [(s, None) for s in PACK_RAGGED]
+             + [(s, None) for s in PACK_PATHS]
+             + [(s, 1) for s in PACK_OFF_GRID])
+    for shape, offset in cases:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            u = random_field(torch, shape, dtype, seed=40)
+            if offset is None:
+                u = random_field(torch, shape, dtype, seed=40)
+            else:
+                n = shape[0] * shape[1] * shape[2]
+                flat = random_field(torch, (n + offset,), dtype, seed=40)
+                u = flat[offset:].view(shape)
+                if u.data_ptr() % 16 == 0:
+                    fail(f"pack_faces {shape}: the view is on the 16-byte "
+                         "grid")
             got, want = pack.pack_faces(u), pack.pack_faces_plain(u)
             torch.cuda.synchronize()
             for name, g, w in zip(pack.FACE_NAMES[2:], got, want):
                 err = float((g.float() - w.float()).abs().max())
                 worst = max(worst, err)
                 if g.dtype != dtype or not torch.equal(g, w):
-                    fail(f"pack_faces {shape} {dtype} {name}: kernel != "
-                         f"plain (max abs err {err})")
+                    fail(f"pack_faces {shape} {dtype} offset {offset}: "
+                         f"{name}: kernel != plain (max abs err {err})")
             del u, got, want
-    emit({"check": {"kernel": PACK_KERNEL[0], "shapes": cases,
+    emit({"check": {"kernel": PACK_KERNEL[0],
+                    "shapes": [list(s) for s, _ in cases],
+                    "offsets": [o for _, o in cases],
                     "max_abs_err": worst,
                     "tolerance": "bitwise (torch.equal)",
                     "elapsed_s": time.perf_counter() - T0}})
@@ -812,54 +856,158 @@ def measure_times(torch, mods, arm: str) -> dict:
     return out
 
 
+#: the wrapper's label among the pack's turns: back-to-back calls, the
+#: host's time a call (every other label is device time, queued)
+PACK_CALL = "pack_faces call"
+#: queued calls of each pack run, and back-to-back calls of ``call_ms``
+PACK_REPS = 50
+#: the row lengths phase 5 also packs 512 x 512 rows of (float32): the
+#: x-face cells 1 KiB to 32 bytes apart
+PACK_NX_SWEEP = (256, 128, 64, 32, 16, 8)
+#: bytes a copy moves to flush the 50 MB L2 before a cold pack
+PACK_FLUSH_BYTES = 128 << 20
+
+
 def measure_pack(torch) -> dict:
-    """Phase 5, face pack at 512^3 float32: kernel, plain version, the
-    four ``.contiguous()`` slices as the library yardstick and a
-    ``copy_`` of the faces' bytes, all as device time (:func:`queued_ms`),
-    and the wrapper's back-to-back call time."""
+    """Phase 5, face pack at 512^3 in float32 and bfloat16, in turns
+    (:func:`in_turns`, median of MEMBW_ROUNDS and spread): the kernel,
+    the plain version, the four ``.contiguous()`` slices as the library
+    yardstick and a ``copy_`` of the faces' bytes, each as device time
+    (:func:`queued_ms`), and the wrapper's back-to-back call time
+    (``call_ms``, :data:`PACK_CALL`). Returns the float32 row."""
     from tpu_comm_torch.kernels import pack
 
     nz = ny = nx = SIZES[3]
-    u = random_field(torch, (nz, ny, nx), torch.float32, seed=41)
-    item = u.element_size()
-    faces = (2 * nz * nx + 2 * nz * ny) * item
-    copy_src = torch.empty(faces // item, device="cuda")
-    copy_dst = torch.empty_like(copy_src)
-    big = torch.empty_like(u)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        u = random_field(torch, (nz, ny, nx), dtype, seed=41)
+        item = u.element_size()
+        faces = (2 * nz * nx + 2 * nz * ny) * item
+        copy_src = torch.empty(faces // item, device="cuda", dtype=dtype)
+        copy_dst = torch.empty_like(copy_src)
+        big = torch.empty_like(u)
+        flush_src = torch.empty(PACK_FLUSH_BYTES, device="cuda",
+                                dtype=torch.uint8)
+        flush_dst = torch.empty_like(flush_src)
 
-    def filler():  # ~8 ms of copies: room to enqueue 20 short calls
+        def filler():  # ~8 ms of copies: room to enqueue the calls
+            for _ in range(96 // item):
+                big.copy_(u)
+
+        def library():
+            return (u[:, 0, :].contiguous(), u[:, -1, :].contiguous(),
+                    u[:, :, 0].contiguous(), u[:, :, -1].contiguous())
+
+        def timer(label, fn):
+            # the pack takes microseconds on the card, less than its Python
+            # call: back-to-back calls time the host, queued calls the card
+            if label == PACK_CALL:
+                return time_ms(torch, fn, PACK_REPS)
+            ms, queued = queued_ms(torch, fn, PACK_REPS, filler)
+            if not queued:
+                fail(f"pack timing: the host fell behind the filler ({label})")
+            return ms
+
+        def flush():  # evicts u's face sectors, leaves the L2 dirty
+            flush_dst.copy_(flush_src)
+
+        def read_flush():  # evicts them, leaves the L2 clean
+            torch.sum(flush_src, dtype=torch.int32)
+
+        calls = {"pack_faces": lambda: pack.pack_faces(u),
+                 "pack_faces_plain": lambda: pack.pack_faces_plain(u),
+                 "four .contiguous()": library,
+                 "copy_": lambda: copy_dst.copy_(copy_src),
+                 PACK_CALL: lambda: pack.pack_faces(u),
+                 "L2 flush": flush,
+                 "L2 flush, pack_faces": lambda: (flush(),
+                                                  pack.pack_faces(u)),
+                 "L2 read flush": read_flush,
+                 "L2 read flush, pack_faces": lambda: (read_flush(),
+                                                       pack.pack_faces(u))}
+        t = in_turns(torch, calls, timer=timer)
+        nbytes = pack_bytes((nz, ny, nx), item)
+        name = str(dtype).removeprefix("torch.")
+        rows[name] = {
+            "kernel": PACK_KERNEL[0], "shape": [nz, ny, nx], "dtype": name,
+            "rounds": MEMBW_ROUNDS,
+            "kernel_ms": t["pack_faces"]["ms"],
+            "kernel_spread_ms": t["pack_faces"]["spread_ms"],
+            "call_ms": t[PACK_CALL]["ms"],
+            "call_spread_ms": t[PACK_CALL]["spread_ms"],
+            "plain_ms": t["pack_faces_plain"]["ms"],
+            "library_ms": t["four .contiguous()"]["ms"],
+            "library_call": "four u[:, 0, :].contiguous()-style slice copies",
+            "copy_ms": t["copy_"]["ms"],
+            # the pack on a cold L2 full of dirty lines, as the mesh step
+            # finds it after the update kernel wrote the block: the
+            # flushed pack's time less the flush's; and on a cold clean L2
+            "kernel_cold_ms": (t["L2 flush, pack_faces"]["ms"]
+                               - t["L2 flush"]["ms"]),
+            "kernel_cold_clean_ms": (t["L2 read flush, pack_faces"]["ms"]
+                                     - t["L2 read flush"]["ms"]),
+            "times": {label: {k: v[k] for k in ("ms", "spread_ms", "runs")}
+                      for label, v in t.items()},
+            "bytes": nbytes, "ops": 0,
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        }
+        emit({"pack_turns": {**rows[name],
+                             "elapsed_s": time.perf_counter() - T0}})
+        del u, copy_src, copy_dst, big, flush_src, flush_dst
+        torch.cuda.empty_cache()
+    return rows["float32"]
+
+
+def pack_bytes(shape, item: int) -> int:
+    """The face pack's modelled bytes: a DRAM sector read per x-face
+    element (one a row where the row fits in a sector), the y rows read,
+    the four faces written."""
+    nz, ny, nx = shape
+    x_sectors = 2 if nx * item > SECTOR_BYTES else 1
+    return nz * ny * x_sectors * SECTOR_BYTES + 2 * nz * nx * item + (
+        2 * nz * nx + 2 * nz * ny) * item
+
+
+def measure_pack_spacing(torch) -> dict:
+    """Phase 5, the face-pack kernel in float32, in turns (:func:`in_turns`,
+    device time queued as in :func:`measure_pack`): at 512^3 beside the
+    narrower rows of PACK_NX_SWEEP (the same 512 x 512 rows, so the same
+    count of x-face cells, closer together). Returns label -> ms and
+    spread."""
+    from tpu_comm_torch.kernels import pack
+
+    full = (SIZES[3],) * 3
+    u = random_field(torch, full, torch.float32, seed=41)
+    big = torch.empty_like(u)
+    narrow = {nx: random_field(torch, full[:2] + (nx,), torch.float32,
+                               seed=42) for nx in PACK_NX_SWEEP}
+
+    def filler():
         for _ in range(24):
             big.copy_(u)
 
-    def library():
-        return (u[:, 0, :].contiguous(), u[:, -1, :].contiguous(),
-                u[:, :, 0].contiguous(), u[:, :, -1].contiguous())
+    def timer(label, fn):
+        ms, queued = queued_ms(torch, fn, PACK_REPS, filler)
+        if not queued:
+            fail(f"pack timing: the host fell behind the filler ({label})")
+        return ms
 
-    # the pack takes microseconds on the card, less than its Python call:
-    # back-to-back calls time the host (call_ms), queued calls the card
-    call_ms = time_ms(torch, lambda: pack.pack_faces(u), 50)
-    timed = {
-        name: queued_ms(torch, fn, 20, filler)
-        for name, fn in (("kernel", lambda: pack.pack_faces(u)),
-                         ("plain", lambda: pack.pack_faces_plain(u)),
-                         ("library", library),
-                         ("copy", lambda: copy_dst.copy_(copy_src)))
-    }
-    if not all(queued for _, queued in timed.values()):
-        fail(f"pack timing: the host fell behind the filler: {timed}")
-    kernel_ms, plain_ms, library_ms, copy_ms = (
-        timed[k][0] for k in ("kernel", "plain", "library", "copy"))
-    # the x faces cost a sector per element, the y faces their rows
-    nbytes = 2 * nz * ny * SECTOR_BYTES + 2 * nz * nx * item + faces
-    out = {
-        "kernel": PACK_KERNEL[0], "shape": [nz, ny, nx], "dtype": "float32",
-        "kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms,
-        "library_call": "four u[:, 0, :].contiguous()-style slice copies",
-        "copy_ms": copy_ms, "bytes": nbytes, "ops": 0,
-        "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
-    }
-    emit({"times": {**out, "elapsed_s": time.perf_counter() - T0}})
+    calls = {f"nx = {full[2]}": lambda: pack.pack_faces(u)}
+    for nx, v in narrow.items():
+        calls[f"nx = {nx}"] = lambda v=v: pack.pack_faces(v)
+    t = in_turns(torch, calls, timer=timer)
+    out = {}
+    for nx in (full[2],) + PACK_NX_SWEEP:
+        nbytes = pack_bytes(full[:2] + (nx,), 4)
+        out[f"nx = {nx}"] = {
+            "ms": t[f"nx = {nx}"]["ms"],
+            "spread_ms": t[f"nx = {nx}"]["spread_ms"], "bytes": nbytes,
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+    emit({"pack_spacing": {"rows": list(full[:2]), "dtype": "float32",
+                           "rounds": MEMBW_ROUNDS, "times": out,
+                           "elapsed_s": time.perf_counter() - T0}})
+    del u, big, narrow
+    torch.cuda.empty_cache()
     return out
 
 
@@ -939,9 +1087,9 @@ def measure_ghost(torch, mods) -> dict:
     return out
 
 
-#: the distributed steps phase 5 times: (key, arm, --pack)
-DIST_STEPS = [(3, "block", "kernel"), (3, "block", "fused"),
-              (3, "stream", "kernel"), (3, "overlap", "kernel"),
+#: the distributed steps phase 5 times: (key, arm, --pack); the 3D
+#: block steps with each pack are timed in turns instead (PACK_STEPS)
+DIST_STEPS = [(3, "stream", "kernel"), (3, "overlap", "kernel"),
               (3, "torch", "fused"), (3, "multi", "fused"),
               (9, "block", "fused"), (9, "stream", "fused"),
               (9, "overlap", "fused"), (9, "multi", "fused"),
@@ -950,6 +1098,9 @@ DIST_STEPS = [(3, "block", "kernel"), (3, "block", "fused"),
               (1, "wave", "fused"), (2, "wave", "fused"),
               (3, "wave", "fused"), (9, "wave", "fused"),
               (27, "wave", "fused")]
+#: the 3D block step with the face-pack kernel and with views, timed in
+#: turns with each other (:func:`measure_pack_steps`)
+PACK_STEPS = [(3, "block", "kernel"), (3, "block", "fused")]
 
 
 def dist_kernel(torch, mods, key: int, impl: str, u, dst):
@@ -970,6 +1121,23 @@ def dist_kernel(torch, mods, key: int, impl: str, u, dst):
     return None
 
 
+def dist_exchange(key: int, impl: str, pack: str, t: int, u, cart):
+    """The exchange of a mesh arm's step alone (pack, post, wait), as a
+    call; None for the torch arm (its chained pad_halo has no such
+    part)."""
+    from tpu_comm_torch.comm import halo
+
+    if impl == "torch":
+        return None
+    if impl == "multi":
+        return lambda: halo.start_exchange_transitive(u, cart, t).wait()
+    if key in BOX:
+        return lambda: halo.start_exchange_transitive(u, cart).wait()
+    if pack == "kernel":
+        return lambda: halo.start_exchange_ghosts_3d_packed(u, cart).wait()
+    return lambda: halo.start_exchange_ghosts(u, cart).wait()
+
+
 def measure_dist_steps(torch, mods) -> list:
     """Phase 5, the whole distributed step at full float32 size on a mesh
     of one (exchange through NCCL, update, face recompute, freeze) beside
@@ -977,7 +1145,7 @@ def measure_dist_steps(torch, mods) -> list:
     pack) of DIST_STEPS and bc. A ``multi`` step (t = MESH_MULTI_T) is one
     width-t exchange and t updates: its time per iteration is a t-th of
     it."""
-    from tpu_comm_torch.comm import halo, launch
+    from tpu_comm_torch.comm import launch
     from tpu_comm_torch.kernels import stencil_name
     from tpu_comm_torch.kernels.distributed import make_local_step
     from tpu_comm_torch.topo import make_cart_mesh
@@ -998,21 +1166,9 @@ def measure_dist_steps(torch, mods) -> list:
                                        stencil=stencil_name(points), **extra)
                 dist_step_ms = time_ms(torch, lambda: step(u, out=dst),
                                        20 // t)
-                # the exchange alone: pack, post, wait (the torch arm's
-                # chained pad_halo has no such part)
-                exchange_ms = None
-                if impl != "torch":
-                    if impl == "multi":
-                        def start(u, cart):
-                            return halo.start_exchange_transitive(u, cart, t)
-                    elif points:
-                        start = halo.start_exchange_transitive
-                    elif pack == "kernel":
-                        start = halo.start_exchange_ghosts_3d_packed
-                    else:
-                        start = halo.start_exchange_ghosts
-                    exchange_ms = time_ms(
-                        torch, lambda: start(u, cart).wait(), 20)
+                exchange = dist_exchange(key, impl, pack, t, u, cart)
+                exchange_ms = None if exchange is None else time_ms(
+                    torch, exchange, 20)
                 kernel = dist_kernel(torch, mods, key, impl, u, dst)
                 kernel_ms = None if kernel is None else time_ms(
                     torch, kernel, 20)
@@ -1027,6 +1183,52 @@ def measure_dist_steps(torch, mods) -> list:
                                     "elapsed_s": time.perf_counter() - T0}})
             del u, dst
             torch.cuda.empty_cache()
+    return rows
+
+
+def measure_pack_steps(torch, mods) -> list:
+    """Phase 5, the 3D block step on a mesh of one at 512^3 float32 with
+    each pack of PACK_STEPS, in turns with each other (:func:`in_turns`,
+    median of MEMBW_ROUNDS and spread), each bc: the whole step, its
+    exchange alone and, once, the block kernel alone."""
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.kernels.distributed import make_local_step
+    from tpu_comm_torch.topo import make_cart_mesh
+
+    rows = []
+    shape = (SIZES[3],) * 3
+    u = random_field(torch, shape, torch.float32, seed=42)
+    dst = torch.empty_like(u)
+    with launch.process_group("nccl"):
+        for bc in ("dirichlet", "periodic"):
+            cart = make_cart_mesh(3, periodic=bc == "periodic")
+            calls = {"jacobi3d_block": dist_kernel(torch, mods, 3, "block",
+                                                   u, dst)}
+            for key, impl, pack in PACK_STEPS:
+                step = make_local_step(cart, bc, impl, pack=pack)
+                calls[f"{impl} --pack {pack} step"] = (
+                    lambda step=step: step(u, out=dst))
+                calls[f"{impl} --pack {pack} exchange"] = dist_exchange(
+                    key, impl, pack, 1, u, cart)
+            t = in_turns(torch, calls)
+            for key, impl, pack in PACK_STEPS:
+                step, exchange = (t[f"{impl} --pack {pack} {part}"]
+                                  for part in ("step", "exchange"))
+                rows.append({
+                    "stencil": _workload(key), "impl": impl, "pack": pack,
+                    "bc": bc, "shape": list(shape), "dtype": "float32",
+                    "t_steps": 1, "rounds": MEMBW_ROUNDS,
+                    "dist_step_ms": step["ms"],
+                    "dist_step_spread_ms": step["spread_ms"],
+                    "dist_step_ms_per_iter": step["ms"],
+                    "kernel_ms": t["jacobi3d_block"]["ms"],
+                    "kernel_spread_ms": t["jacobi3d_block"]["spread_ms"],
+                    "exchange_ms": exchange["ms"],
+                    "exchange_spread_ms": exchange["spread_ms"]})
+                emit({"dist_step": {**rows[-1],
+                                    "elapsed_s": time.perf_counter() - T0}})
+    del u, dst
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1667,15 +1869,20 @@ def drive_membw(torch, counters) -> dict:
     return launches
 
 
-def in_turns(torch, calls: dict, rounds: int = MEMBW_ROUNDS) -> dict:
-    """``rounds`` :func:`time_ms` runs of each call of ``calls`` (label ->
-    fn), in turns: the labels in order in even rounds and reversed in odd
-    ones (copy_, kernel, kernel, copy_, ...). Returns label -> the median
+def in_turns(torch, calls: dict, rounds: int = MEMBW_ROUNDS,
+             timer=None) -> dict:
+    """``rounds`` runs of each call of ``calls`` (label -> fn), in turns:
+    the labels in order in even rounds and reversed in odd ones (copy_,
+    kernel, kernel, copy_, ...); ``timer(label, fn)`` times one run, by
+    default :func:`time_ms` over 50 calls. Returns label -> the median
     ms, the spread (max - min) and the runs."""
+    if timer is None:
+        def timer(label, fn):
+            return time_ms(torch, fn, 50)
     runs = {label: [] for label in calls}
     for r in range(rounds):
         for label in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
-            runs[label].append(time_ms(torch, calls[label], 50))
+            runs[label].append(timer(label, calls[label]))
     return {label: {"ms": statistics.median(v), "spread_ms": max(v) - min(v),
                     "runs": v} for label, v in runs.items()}
 
@@ -1864,6 +2071,7 @@ def main() -> int:
     emit({"build": {"seconds": time.perf_counter() - t0,
                     "libraries": sorted(libs),
                     "build_dir": str(_build.BUILD_DIR.relative_to(ROOT))}})
+    emit({"l2_fetch_granularity_bytes": l2_fetch_granularity(libs)})
 
     mods = {key: kernels_for(DIM[key], key if key in BOX else 0)
             for key in DIM}
@@ -1894,7 +2102,9 @@ def main() -> int:
     multi_times = measure_multi(torch, mods)
     ghost_times = measure_ghost(torch, mods)
     pack_times = measure_pack(torch)
+    measure_pack_spacing(torch)
     membw_times = measure_membw(torch, mods)
+    measure_pack_steps(torch, mods)
     measure_dist_steps(torch, mods)
 
     print(smi, flush=True)
@@ -1951,6 +2161,8 @@ def main() -> int:
         "bound_by": pack_times["bound_by"],
         "library_ms": pack_times["library_ms"],
         "copy_ms": pack_times["copy_ms"], "call_ms": pack_times["call_ms"],
+        "spread_ms": pack_times["kernel_spread_ms"],
+        "cold_ms": pack_times["kernel_cold_ms"],
         "shape": pack_times["shape"], "dtype": "float32",
     }
     membw_rows = []

@@ -308,17 +308,28 @@ def test_block_wrapper_counts_launches_and_checks_its_arguments(card, dim):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_pack_kernel_bitwise_equals_plain_version(card, dtype):
+    """Every path of the kernel: y rows as 16-byte vectors and cell by
+    cell, a base off the 16-byte grid, nx = 1, ny = 1, nz above 65535,
+    and 512^3, where the warps stride over the items."""
     from tpu_comm_torch.kernels import pack
 
-    for shape in [(1, 1, 1), (3, 5, 7), (19, 23, 45), (130, 9, 33),
-                  (64, 64, 64), (4, 8, 128)]:
-        u = _field(shape, dtype, seed=3)
+    def held(u):
         before = pack.pack_faces.launches
         got = pack.pack_faces(u)
         torch.cuda.synchronize()
         assert pack.pack_faces.launches == before + 1
         for g, w in zip(got, pack.pack_faces_plain(u)):
-            assert g.is_contiguous() and torch.equal(g, w), shape
+            assert g.is_contiguous() and torch.equal(g, w), u.shape
+
+    for shape in [(1, 1, 1), (3, 5, 7), (19, 23, 45), (130, 9, 33),
+                  (64, 64, 64), (4, 8, 128), (5, 7, 64), (3, 4, 8),
+                  (4, 6, 34), (7, 300, 1), (9, 1, 300), (70000, 3, 5),
+                  (66000, 2, 8), (512, 512, 512)]:
+        held(_field(shape, dtype, seed=3))
+    flat = _field((64 * 64 * 64 + 1,), dtype, seed=5)
+    u = flat[1:].view(64, 64, 64)
+    assert u.data_ptr() % 16 != 0
+    held(u)
     with pytest.raises(ValueError, match="contiguous"):
         pack.pack_faces(u.transpose(0, 1))
     with pytest.raises(ValueError, match="takes"):

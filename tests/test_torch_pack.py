@@ -85,3 +85,141 @@ def test_bad_input_is_refused():
         ppack.pack_faces_3d(u, impl="pallas")
     with pytest.raises(ValueError, match="unknown pack impl"):
         jpack.pack_faces_3d(jnp.asarray(u.numpy()), impl="kernel")
+
+
+# --- the kernel's grid (pack_plan) -----------------------------------------
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("shape", [(512, 512, 512), (1, 1, 1), (3, 5, 7),
+                                   (130, 9, 33), (5, 7, 64), (7, 300, 1),
+                                   (9, 1, 300), (70000, 3, 5), (66000, 2, 8),
+                                   (1 << 20, 2, 2)])
+def test_pack_plan_fits_the_card_and_counts_every_item(shape, sms):
+    """The grid fits a launch, and its warps, striding, reach every work
+    item of ``csrc/pack.cu``: the x chunks of 32 flat rows, one a lane,
+    and the 2 nz y rows."""
+    nz, ny, _ = shape
+    blocks = ppack.pack_plan(shape, sms)
+    assert ppack.PACK_THREADS <= 1024 and ppack.PACK_THREADS % 32 == 0
+    assert 1 <= blocks <= sms * ppack.BLOCKS_PER_SM
+    items = -(-nz * ny // 32) + 2 * nz
+    warps = blocks * ppack.PACK_THREADS // 32
+    # never a block without an item; fewer warps than items only where the
+    # grid is full, and the grid-stride loop then takes the rest
+    assert warps - ppack.PACK_THREADS // 32 < items
+    if warps < items:
+        assert blocks == sms * ppack.BLOCKS_PER_SM
+
+
+def test_pack_plan_at_512_cubed_on_the_h100():
+    """132 SMs: 8192 x chunks and 1024 y rows dealt to 528 blocks (4 an
+    SM) of 8 warps, which stride; a 64^3 block needs 32 blocks."""
+    assert ppack.pack_plan((512, 512, 512), 132) == 528
+    assert ppack.pack_plan((64, 64, 64), 132) == 32
+
+
+def test_pack_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="sms"):
+        ppack.pack_plan((4, 4, 4), 0)
+
+
+# --- the launch path every wrapper goes through ----------------------------
+
+class _FakeLib:
+    """A built library as ctypes shows it: its exported launchers as
+    attributes, and ``tc_error_string``."""
+
+    def __init__(self, **symbols):
+        self.lookups = 0
+        self._symbols = symbols
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        self.lookups += 1
+        if name == "tc_error_string":
+            return lambda code: f"fake error {code}".encode()
+        if name not in self._symbols:
+            raise AttributeError(name)
+        return self._symbols[name]
+
+
+@pytest.fixture
+def fake_libs(monkeypatch):
+    from tpu_comm_torch.kernels import _build
+
+    calls = []
+    libs = {
+        "a": _FakeLib(tc_one=lambda *a: calls.append(("a", a)) or 0),
+        "b": _FakeLib(tc_two=lambda *a: calls.append(("b", a)) or 0,
+                      tc_bad=lambda *a: 7),
+    }
+    monkeypatch.setattr(_build, "libraries", lambda: libs)
+    _build._entry.cache_clear()
+    yield _build, libs, calls
+    _build._entry.cache_clear()
+
+
+def test_launch_resolves_a_symbol_once_to_the_library_exporting_it(fake_libs):
+    _build, libs, calls = fake_libs
+    _build.launch("tc_two", 1, 2)
+    looked = libs["a"].lookups + libs["b"].lookups
+    _build.launch("tc_two", 3, 4)
+    _build.launch("tc_one", 5)
+    assert calls == [("b", (1, 2)), ("b", (3, 4)), ("a", (5,))]
+    # the second tc_two launch looked nothing up
+    assert libs["a"].lookups + libs["b"].lookups == looked + 2
+    assert _build._entry.cache_info().hits == 1
+
+
+def test_launch_of_a_symbol_no_library_exports_raises(fake_libs):
+    _build, _, calls = fake_libs
+    for _ in range(2):
+        with pytest.raises(RuntimeError,
+                           match="no built library exports tc_missing"):
+            _build.launch("tc_missing", 1)
+    assert calls == []
+
+
+def test_a_refused_launch_raises_with_the_library_message(fake_libs):
+    _build, _, _ = fake_libs
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=r"tc_bad launch failed: "
+                           r"CUDA error 7 \(fake error 7\)"):
+            _build.launch("tc_bad")
+
+
+class _OnDevice:
+    def __init__(self, index):
+        self.index = index
+
+    def get_device(self):
+        return self.index
+
+
+@pytest.mark.parametrize("current,index", [(0, 0), (1, 1), (0, 1)])
+def test_launch_kernel_enters_a_device_only_when_it_is_not_current(
+        monkeypatch, current, index):
+    from tpu_comm_torch.kernels import tiling
+
+    entered, launched = [], []
+
+    class _Device:
+        def __init__(self, i):
+            self.i = i
+
+        def __enter__(self):
+            entered.append(self.i)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", _Device)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda i: 1000 + i, raising=False)
+    monkeypatch.setattr(tiling, "launch",
+                        lambda *a: launched.append(a))
+    tiling.launch_kernel("tc_sym", _OnDevice(index), 11, 12)
+    assert launched == [("tc_sym", 11, 12, 1000 + index)]
+    assert entered == ([] if current == index else [index])

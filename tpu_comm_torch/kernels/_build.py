@@ -67,10 +67,12 @@ SIGNATURES = {
     "tc_jacobi2d_multi": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "tc_stencil9_multi": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "tc_jacobi3d_multi": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "tc_pack_faces": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "tc_pack_faces": (_P, _P, _P, _P, _P, _N, _N, _N, _I, _I, _P),
     "tc_membw_chunked": (_P, _P, _P, _N, _I, _I, ctypes.c_float, _I, _P),
     "tc_membw_stream": (_P, _P, _N, _I, _I, _P),
     "tc_membw_dma": (_P, _P, _N, _I, _I, _I, _I, _P),
+    # a query, not a launcher: the L2's fetch granularity, in bytes
+    "tc_l2_fetch_granularity": (ctypes.POINTER(ctypes.c_size_t),),
 }
 
 
@@ -149,16 +151,21 @@ def libraries() -> dict[str, ctypes.CDLL]:
     return libs
 
 
+@functools.cache
+def _entry(symbol: str) -> tuple:
+    """``(function, library)`` of the C launcher ``symbol``: the first
+    library of :func:`libraries` that exports it, looked up once."""
+    for lib in libraries().values():
+        if hasattr(lib, symbol):
+            return getattr(lib, symbol), lib
+    raise RuntimeError(f"no built library exports {symbol}")
+
+
 def launch(symbol: str, *args) -> None:
     """Call the C launcher ``symbol`` from the library that exports it;
     raise RuntimeError with CUDA's message if the launch was refused."""
-    for lib in libraries().values():
-        if hasattr(lib, symbol):
-            code = getattr(lib, symbol)(*args)
-            if code != 0:
-                msg = lib.tc_error_string(code).decode()
-                raise RuntimeError(
-                    f"{symbol} launch failed: CUDA error {code} ({msg})"
-                )
-            return
-    raise RuntimeError(f"no built library exports {symbol}")
+    fn, lib = _entry(symbol)
+    code = fn(*args)
+    if code != 0:
+        msg = lib.tc_error_string(code).decode()
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {code} ({msg})")

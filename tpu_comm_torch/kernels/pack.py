@@ -14,14 +14,17 @@ are gathered first:
   CPU runs.
 - ``pack_faces``       — the wrapper of ``pack_faces_kernel`` in
   ``csrc/pack.cu`` (the port of ``_pack_kernel`` /
-  ``pack_faces_3d_pallas``): one launch writes all four faces. A CUDA
-  tensor goes to the kernel, a CPU tensor to ``pack_faces_plain``.
+  ``pack_faces_3d_pallas``): one launch writes all four faces, on the
+  grid of :func:`pack_plan`. A CUDA tensor goes to the kernel, a CPU
+  tensor to ``pack_faces_plain``.
 - ``pack_faces_3d``    — all six faces by either arm: ``fused`` (views of
   the block; JAX's ``lax`` arm, which XLA fuses into the collective) or
   ``kernel`` (JAX's ``pallas`` arm).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -30,17 +33,43 @@ from tpu_comm_torch.kernels.tiling import KERNEL_DTYPE_CODES, launch_kernel
 FACE_NAMES = ("z_lo", "z_hi", "y_lo", "y_hi", "x_lo", "x_hi")
 #: pack arms of the distributed step (JAX: ``fused`` and ``pallas``)
 PACK_IMPLS = ("fused", "kernel")
+#: threads a block of the kernel (``csrc/pack.cu`` kThreads)
+PACK_THREADS = 256
+#: blocks an SM the grid holds at most; beyond, warps stride over items
+#: (the fastest of 1-16 on the H100, PERF.md §6)
+BLOCKS_PER_SM = 4
+
+
+@functools.lru_cache(maxsize=256)
+def pack_plan(shape: tuple, sms: int) -> int:
+    """The blocks of ``pack_faces_kernel``'s grid for a block of ``shape``
+    (nz, ny, nx) on a card of ``sms`` SMs: a warp for each work item (an
+    x chunk of 32 flat rows, or one of the 2 nz y rows), at most
+    BLOCKS_PER_SM blocks an SM, whose warps then stride over the rest."""
+    if sms < 1:
+        raise ValueError(f"need sms >= 1, got {sms}")
+    nz, ny, _ = shape
+    items = -(-nz * ny // 32) + 2 * nz
+    return min(-(-items // (PACK_THREADS // 32)), sms * BLOCKS_PER_SM)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _face_buffers(u: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """The four packed faces' storage: one allocation, four contiguous
-    views ``y_lo, y_hi (nz, nx)``, ``x_lo, x_hi (nz, ny)``."""
+    views ``y_lo, y_hi (nz, nx)``, ``x_lo, x_hi (nz, ny)`` (each made by
+    one ``as_strided``: the fewest tensor ops, as the wrapper's host time
+    a call is several times the kernel's)."""
     nz, ny, nx = u.shape
-    buf = torch.empty(2 * nz * nx + 2 * nz * ny, dtype=u.dtype,
-                      device=u.device)
-    y_lo, y_hi, x_lo, x_hi = buf.split([nz * nx, nz * nx, nz * ny, nz * ny])
-    return (y_lo.view(nz, nx), y_hi.view(nz, nx),
-            x_lo.view(nz, ny), x_hi.view(nz, ny))
+    buf = u.new_empty(2 * nz * (nx + ny))
+    y, x = nz * nx, nz * ny
+    return (buf.as_strided((nz, nx), (nx, 1), 0),
+            buf.as_strided((nz, nx), (nx, 1), y),
+            buf.as_strided((nz, ny), (ny, 1), 2 * y),
+            buf.as_strided((nz, ny), (ny, 1), 2 * y + x))
 
 
 def _check_block(u: torch.Tensor) -> None:
@@ -67,9 +96,9 @@ def pack_faces(u: torch.Tensor) -> tuple[torch.Tensor, ...]:
     for a CUDA tensor, ``pack_faces_plain`` for a CPU tensor.
     ``pack_faces.launches`` counts kernel launches."""
     _check_block(u)
-    if u.device.type == "cpu":
-        return pack_faces_plain(u)
-    if u.device.type != "cuda":
+    if not u.is_cuda:
+        if u.device.type == "cpu":
+            return pack_faces_plain(u)
         raise ValueError(f"CUDA kernel needs a CUDA tensor, got {u.device}")
     if u.dtype not in KERNEL_DTYPE_CODES:
         raise ValueError(
@@ -77,10 +106,12 @@ def pack_faces(u: torch.Tensor) -> tuple[torch.Tensor, ...]:
         )
     if not u.is_contiguous():
         raise ValueError("CUDA kernel needs a contiguous block")
+    shape = tuple(u.shape)
+    blocks = pack_plan(shape, _sms(u.get_device()))
     faces = _face_buffers(u)
     launch_kernel(
         "tc_pack_faces", u, u.data_ptr(), *(f.data_ptr() for f in faces),
-        *u.shape, u.element_size(),
+        *shape, u.element_size(), blocks,
     )
     pack_faces.launches += 1
     return faces

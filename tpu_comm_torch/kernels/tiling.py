@@ -17,10 +17,13 @@ even.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
+
+from tpu_comm_torch.kernels._build import launch
 
 #: field dtypes the stencil kernels take, by the driver's ``--dtype`` name
 DTYPES = {
@@ -178,11 +181,13 @@ def knob_tag(aliased: bool = False, depth: int | None = None) -> dict:
 
 def launch_kernel(symbol: str, t: torch.Tensor, *args) -> None:
     """Call the C launcher ``symbol`` of ``csrc/`` on ``t``'s device with
-    ``args`` and, last, the device's current stream."""
-    from tpu_comm_torch.kernels._build import launch
-
-    with torch.cuda.device(t.device):
-        launch(symbol, *args, torch.cuda.current_stream(t.device).cuda_stream)
+    ``args`` and, last, the device's current stream (its raw handle).
+    The device becomes current for the call only where it is not
+    already."""
+    index = t.get_device()
+    current = index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(index):
+        launch(symbol, *args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def launch_stencil(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
