@@ -70,7 +70,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
    exchange, no kernel) for the star in 1D, 2D,
    3D and both boxes, each bc; each row must say ``platform: cuda`` and
    ``verified: true``, the run's kernels must have launched and no
-   other;
+   other; the collective sweep at world size 1 (NCCL), ``sweep --op OP
+   --n-devices 1`` for every op (1 KiB-64 MiB) and ``allreduce-ring
+   --wire-dtype bfloat16 --acc-dtype float32``, and ``allreduce`` to
+   1 GiB: every row ``platform: cuda``, ``verified: true``, ``mesh:
+   [1]``, ``gbps_bus: 0.0``, and no kernel of the port launched; and
+   one profiled mesh run, ``stencil --dim 3 --mesh 1,1,1 --impl block
+   --pack kernel --bc periodic --iters 20 --profile DIR`` (and the same
+   run without ``--profile``, for the cost of the trace), whose trace
+   must hold the block kernel and an NCCL kernel; its ten device ops
+   that took the most time are printed with their counts;
 5. times at the full float32 sizes (CUDA events): kernel, plain version,
    one library call computing the same function (a yardstick the port
    never calls), and for each stencil a device-to-device ``copy_`` and the
@@ -279,6 +288,24 @@ MULTI_ITERS = 96
 #: run (each bc)
 MESH_MULTI_T = 4
 MESH_MULTI_KEYS = (1, 2, 3, 9, 27)
+#: the sweep runs of phase 4, each at world size 1: (--op, more argv); the
+#: default range 1 KiB-64 MiB, and allreduce to 1 GiB (BASELINE.json:8)
+SWEEP_RUNS = [(op, []) for op in (
+    "allreduce", "allreduce-ring", "rs-ag", "ppermute", "bcast",
+    "bcast-tree", "all-to-all")] + [
+    ("allreduce-ring", ["--wire-dtype", "bfloat16", "--acc-dtype",
+                        "float32"]),
+    ("allreduce", ["--max-bytes", str(1 << 30)]),
+]
+#: the profiled run of phase 4: the 3D block step on a mesh of one, its
+#: periodic self-exchange through NCCL; a short timed loop keeps the
+#: trace small
+PROFILE_ARGV = ["stencil", "--dim", "3", "--size", str(SIZES[3]), "--mesh",
+                "1,1,1", "--impl", "block", "--pack", "kernel", "--bc",
+                "periodic", "--iters", "20", "--warmup", "1", "--reps", "3",
+                "--verify", "--verify-iters", "1"]
+#: device ops of the profiled run printed, the most time first
+PROFILE_TOP = 10
 MEMBW_N = 1 << 26
 #: 25 rows of 128: the last chunk of 8 rows is ragged
 MEMBW_RAGGED = 128 * 8 * 3 + 128
@@ -763,6 +790,130 @@ def drive_mesh(torch, counters) -> dict:
                 "secs_per_iter": row["secs_per_iter"],
                 "elapsed_s": time.perf_counter() - T0}})
     return launches
+
+
+def drive_sweep(torch, counters) -> None:
+    """Phase 4, the collective sweep at world size 1: ``sweep --op OP
+    --n-devices 1`` per SWEEP_RUNS, through NCCL; no kernel of the port
+    may launch."""
+    from tpu_comm_torch import cli
+    from tpu_comm_torch.bench import SWEEP_OPS
+    from tpu_comm_torch.bench.sweep import SweepConfig
+
+    if sorted({op for op, _ in SWEEP_RUNS}) != sorted(SWEEP_OPS):
+        fail(f"phase 4 sweeps {SWEEP_RUNS}, the port has {SWEEP_OPS}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, (op, extra) in enumerate(SWEEP_RUNS):
+            path = Path(tmp) / f"sweep{n}.jsonl"
+            for w in counters.values():
+                w.launches = 0
+            argv = ["sweep", "--op", op, "--n-devices", "1", "--jsonl",
+                    str(path), *extra]
+            rc = cli.main(argv)
+            counts = {k: w.launches for k, w in counters.items()}
+            what = " ".join(argv[1:5] + extra)
+            if rc != 0:
+                fail(f"{what} exited {rc}")
+            rows = [json.loads(line)
+                    for line in path.read_text().splitlines()]
+            max_bytes = int(extra[1]) if "--max-bytes" in extra else None
+            sizes = SweepConfig(**({"max_bytes": max_bytes} if max_bytes
+                                   else {})).sizes()
+            if [r["size"] for r in rows] != sizes:
+                fail(f"{what}: rows of sizes {[r['size'] for r in rows]}, "
+                     f"expected {sizes}")
+            want = {"platform": "cuda", "verified": True, "mesh": [1],
+                    "gbps_bus": 0.0, "workload": f"sweep-{op}"}
+            for r in rows:
+                got = {k: r.get(k) for k in want}
+                if got != want:
+                    fail(f"{what}: a row says {got}, expected {want}")
+            if any(counts.values()):
+                fail(f"{what} launched kernels of the port: {counts}")
+            emit({"main_path": {
+                "sweep": {"op": op, "argv": extra, "mesh": [1]},
+                "launches": 0,
+                "gbps_alg": {r["size"]: r["gbps_alg"] for r in rows},
+                "secs_per_iter": {r["size"]: r["secs_per_iter"]
+                                  for r in rows},
+                "elapsed_s": time.perf_counter() - T0}})
+
+
+def drive_profile(torch, counters) -> None:
+    """Phase 4, ``stencil --profile``: PROFILE_ARGV with and without the
+    trace. The trace must be this rank's file alone and hold the block
+    kernel and an NCCL kernel; prints its PROFILE_TOP device and host ops
+    (a host op's time includes what it encloses), and the device's busy
+    time a step beside the step time of each run."""
+    from tpu_comm_torch import cli
+    from tpu_comm_torch.bench.trace import trace_ops
+
+    block = KERNELS["block"][3][0]
+    seconds, rows = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = Path(tmp) / "prof"
+        for traced in (False, True):
+            path = Path(tmp) / f"profile{int(traced)}.jsonl"
+            for w in counters.values():
+                w.launches = 0
+            argv = PROFILE_ARGV + ["--jsonl", str(path)] + (
+                ["--profile", str(prof)] if traced else [])
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            seconds[traced] = time.perf_counter() - t0
+            counts = {k: w.launches for k, w in counters.items()}
+            what = " ".join(argv[1:])
+            if rc != 0:
+                fail(f"{what} exited {rc}")
+            row = rows[traced] = json.loads(
+                path.read_text().splitlines()[-1])
+            want = {"platform": "cuda", "verified": True, "impl": "block",
+                    "pack": "kernel", "mesh": [1, 1, 1]}
+            got = {k: row.get(k) for k in want}
+            if got != want:
+                fail(f"{what}: row says {got}, expected {want}")
+            launched = {k for k, c in counts.items() if c}
+            if launched != {block, PACK_KERNEL[0]}:
+                fail(f"{what} launched {sorted(launched)}: {counts}")
+        files = sorted(p.name for p in prof.iterdir())
+        if files != ["rank0.json"]:
+            fail(f"--profile wrote {files}, expected ['rank0.json']")
+        trace = prof / "rank0.json"
+        t0 = time.perf_counter()
+        ops = trace_ops(trace)
+        parse_s = time.perf_counter() - t0
+        host = trace_ops(trace, ("cpu_op", "cuda_runtime"))
+        if not any(block in name for name in ops):
+            fail(f"the trace holds no {block} kernel: {sorted(ops)[:20]}")
+        if not any("nccl" in name.lower() for name in ops):
+            fail(f"the trace holds no NCCL kernel: {sorted(ops)[:20]}")
+        busy_us = sum(t for _, t in ops.values())
+        # the traced region: the slope's two loops, warmup and reps, one
+        # block kernel a step
+        region_s = sum(row["phases"].values())
+        steps = sum(c for name, (c, _) in ops.items() if block in name)
+
+        def top(table):
+            return [{"name": name, "count": c, "total_ms": t / 1e3,
+                     "mean_us": t / c}
+                    for name, (c, t) in sorted(
+                        table.items(), key=lambda kv: -kv[1][1]
+                    )[:PROFILE_TOP]]
+
+        emit({"profile": {
+            "argv": PROFILE_ARGV, "trace_bytes": trace.stat().st_size,
+            "run_s": seconds[False], "profiled_run_s": seconds[True],
+            "secs_per_iter": {"plain": rows[False]["secs_per_iter"],
+                              "profiled": rows[True]["secs_per_iter"]},
+            "parse_s": parse_s, "device_ops": len(ops),
+            "device_busy_ms": busy_us / 1e3, "steps": steps,
+            "device_busy_ms_a_step": busy_us / 1e3 / steps,
+            "traced_region_s": region_s,
+            "device_busy_share": busy_us / 1e6 / region_s,
+            "launches": {k: c for k, c in counts.items() if c},
+            "top_device_ops": top(ops),
+            "top_host_ops": top(host),
+            "elapsed_s": time.perf_counter() - T0}})
 
 
 def library_call(torch, key: int):
@@ -2045,6 +2196,32 @@ def measure_membw(torch, mods) -> dict:
     return out
 
 
+def family_modules() -> dict:
+    """Stencil key -> the port's family module."""
+    from tpu_comm_torch.kernels import kernels_for
+
+    return {key: kernels_for(DIM[key], key if key in BOX else 0)
+            for key in DIM}
+
+
+def launch_counters(mods) -> dict:
+    """Kernel name -> the wrapper whose ``launches`` counts its launches,
+    for every kernel of the port."""
+    from tpu_comm_torch.kernels import membw, pack
+
+    counters = {
+        KERNELS[arm][key][0]: mods[key].STEPS[arm]
+        for arm in KERNELS for key in KERNELS[arm]
+    }
+    counters[PACK_KERNEL[0]] = pack.pack_faces
+    counters.update({f"membw.{w.__name__}": w for w in membw.WRAPPERS})
+    counters.update({MULTI_KERNELS[key][0]: mods[key].step_multi
+                     for key in MULTI_KERNELS})
+    counters.update({name: mods[key].step_wave_ghost
+                     for key, (name, _) in GHOST_KERNELS.items()})
+    return counters
+
+
 def main() -> int:
     import torch
 
@@ -2054,7 +2231,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from tpu_comm_torch.bench.timing import nvidia_smi_line
-    from tpu_comm_torch.kernels import _build, kernels_for, membw, pack
+    from tpu_comm_torch.kernels import _build
 
     smi = nvidia_smi_line()
     if smi is None:
@@ -2073,18 +2250,8 @@ def main() -> int:
                     "build_dir": str(_build.BUILD_DIR.relative_to(ROOT))}})
     emit({"l2_fetch_granularity_bytes": l2_fetch_granularity(libs)})
 
-    mods = {key: kernels_for(DIM[key], key if key in BOX else 0)
-            for key in DIM}
-    counters = {
-        KERNELS[arm][key][0]: mods[key].STEPS[arm]
-        for arm in KERNELS for key in KERNELS[arm]
-    }
-    counters[PACK_KERNEL[0]] = pack.pack_faces
-    counters.update({f"membw.{w.__name__}": w for w in membw.WRAPPERS})
-    counters.update({MULTI_KERNELS[key][0]: mods[key].step_multi
-                     for key in MULTI_KERNELS})
-    counters.update({name: mods[key].step_wave_ghost
-                     for key, (name, _) in GHOST_KERNELS.items()})
+    mods = family_modules()
+    counters = launch_counters(mods)
     errs = {arm: check_kernels(torch, mods, arm) for arm in KERNELS}
     ghost_errs = check_ghost_kernels(torch, mods)
     multi_errs = check_multi(torch, mods)
@@ -2098,6 +2265,8 @@ def main() -> int:
     multi_launches = drive_multi(torch, counters)
     membw_launches = drive_membw(torch, counters)
     mesh_launches = drive_mesh(torch, counters)
+    drive_sweep(torch, counters)
+    drive_profile(torch, counters)
     times = {arm: measure_times(torch, mods, arm) for arm in KERNELS}
     multi_times = measure_multi(torch, mods)
     ghost_times = measure_ghost(torch, mods)

@@ -960,3 +960,76 @@ def test_wave_mesh_of_one_on_the_card_through_nccl(card, dim, points, bc):
     assert rec["impl"] == "wave"
     # verify, then iters and 3 * iters a timed run
     assert wrapper.launches - before == 4 + 2 * 4 * 3
+
+
+def _all_launches() -> int:
+    """Launches of every kernel wrapper of the port so far."""
+    from tpu_comm_torch.kernels import kernels_for, pack
+
+    wrappers = {pack.pack_faces, *membw.WRAPPERS}
+    for dim, points in [(1, 0), (2, 0), (3, 0), (2, 9), (3, 27)]:
+        family = kernels_for(dim, points)
+        wrappers.update(family.STEPS.values())
+        for name in ("step_multi", "step_wave_ghost", "step_wave"):
+            if hasattr(family, name):
+                wrappers.add(getattr(family, name))
+    return sum(getattr(w, "launches", 0) for w in wrappers)
+
+
+#: the sweep's ops at world size 1: (op, wire dtype, accumulation dtype)
+SWEEP_CARD_OPS = [(op, None, None) for op in (
+    "allreduce", "allreduce-ring", "rs-ag", "ppermute", "bcast",
+    "bcast-tree", "all-to-all")] + [("allreduce-ring", "bfloat16",
+                                     "float32")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op,wire,acc", SWEEP_CARD_OPS)
+def test_sweep_at_world_size_1_on_the_card(card, op, wire, acc, dtype):
+    """The sweep through NCCL at world size 1: verified rows of every
+    size, ``gbps_bus`` 0.0 (no link), and no kernel of the port."""
+    from tpu_comm_torch.bench import SWEEP_OPS
+    from tpu_comm_torch.bench.sweep import SweepConfig, run_sweep
+
+    assert op in SWEEP_OPS
+    before = _all_launches()
+    cfg = SweepConfig(op=op, n_devices=1, dtype=dtype, wire_dtype=wire,
+                      acc_dtype=acc, max_bytes=1 << 20, iters=5, warmup=1,
+                      reps=2)
+    rows = run_sweep(cfg)
+    assert [r["size"] for r in rows] == cfg.sizes()
+    for r in rows:
+        assert (r["platform"], r["backend"], r["verified"], r["mesh"]) == (
+            "cuda", "cuda", True, [1])
+        assert r["gbps_bus"] == (None if r["below_timing_resolution"]
+                                 else 0.0)
+    assert _all_launches() == before
+
+
+def test_sweep_refuses_more_ranks_than_cards(card, capsys):
+    from tpu_comm_torch import cli
+
+    n = torch.cuda.device_count() + 1
+    assert cli.main(["sweep", "--n-devices", str(n), "--max-bytes",
+                     "1024"]) == 2
+    assert f"needs {n} CUDA devices" in capsys.readouterr().err
+
+
+def test_profile_traces_the_kernels_and_nccl_on_the_card(card, tmp_path):
+    """``stencil --profile`` of the 3D block step on a mesh of one,
+    periodic (the self-exchange through NCCL): one trace, holding the
+    block kernel and an NCCL kernel; the row as without the trace."""
+    from tpu_comm_torch.bench import stencil
+    from tpu_comm_torch.bench.trace import trace_ops
+
+    common = dict(dim=3, size=64, iters=3, bc="periodic", impl="block",
+                  pack="kernel", mesh=(1, 1, 1), verify=True,
+                  verify_iters=2, warmup=1, reps=1)
+    plain = stencil.run_distributed_bench(stencil.StencilConfig(**common))
+    row = stencil.run_distributed_bench(stencil.StencilConfig(
+        profile=str(tmp_path), **common))
+    assert sorted(row) == sorted(plain) and row["verified"] is True
+    assert [p.name for p in tmp_path.iterdir()] == ["rank0.json"]
+    ops = trace_ops(tmp_path / "rank0.json")
+    assert any("jacobi3d_block" in name for name in ops), sorted(ops)
+    assert any("nccl" in name.lower() for name in ops), sorted(ops)

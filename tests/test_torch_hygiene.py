@@ -15,8 +15,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "tpu_comm_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
-    # what the mesh tests run on their spawned ranks
+    # what the mesh, collective and sweep tests run on their spawned ranks
     ROOT / "tests" / "torch_mesh_cases.py",
+    ROOT / "tests" / "torch_coll_cases.py",
 ]
 FORBIDDEN_ANYWHERE = ("jax", "jaxlib", "ml_dtypes", "tpu_comm")
 FORBIDDEN_AT_TOP = ("triton",)
@@ -67,7 +68,11 @@ def test_the_walk_sees_the_whole_package():
         "tpu_comm_torch/kernels/distributed.py",
         "tpu_comm_torch/kernels/stencil9.py",
         "tpu_comm_torch/kernels/stencil27.py",
+        "tpu_comm_torch/comm/collectives.py",
+        "tpu_comm_torch/bench/sweep.py",
+        "tpu_comm_torch/bench/trace.py",
         "tests/torch_mesh_cases.py",
+        "tests/torch_coll_cases.py",
         "chip_smoke.py",
     } <= names
 

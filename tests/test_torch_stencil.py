@@ -212,7 +212,7 @@ def test_block_arm_driver_dump_matches_jax_pallas_arm(tmp_path, dim, bc):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--halo-parts", "2"], ["--profile", "trace"], ["--fuse-steps", "2"],
+    ["--halo-parts", "2"], ["--trace", "out.json"], ["--fuse-steps", "2"],
     ["--halo-width", "2"], ["--halo-wire", "bfloat16"],
     ["--dimsem", "parallel"], ["--backend", "cpu-sim"],
 ])

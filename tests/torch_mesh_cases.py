@@ -139,15 +139,17 @@ KINDS = {
 }
 
 
-def run_cases(cases: dict) -> dict | None:
-    """Run every case on this rank; on rank 0 return ``name -> list of
-    the ranks' results`` (None elsewhere). A case that raises the same
-    error on every rank is recorded as that ``Exception`` instance."""
+def run_cases(cases: dict, kinds: dict | None = None) -> dict | None:
+    """Run every case on this rank (``kind`` looked up in ``kinds``,
+    default :data:`KINDS`); on rank 0 return ``name -> list of the ranks'
+    results`` (None elsewhere). A case that raises the same error on
+    every rank is recorded as that ``Exception`` instance."""
+    kinds = KINDS if kinds is None else kinds
     world = dist.get_world_size()
     out = {}
     for name, (kind, params) in cases.items():
         try:
-            result = KINDS[kind](params)
+            result = kinds[kind](params)
         except ValueError as e:  # the same check fails on every rank
             result = e
         gathered = [None] * world if dist.get_rank() == 0 else None

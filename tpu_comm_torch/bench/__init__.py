@@ -1,7 +1,9 @@
 """Benchmark drivers of the port (``tpu_comm/bench`` counterparts).
 
-The STREAM quartet's names (the port's copies of
-``tpu_comm/bench/__init__.py`` ``MEMBW_OPS`` and of
+The collective sweep's op names (the port's copy of
+``tpu_comm/bench/__init__.py`` ``SWEEP_OPS``; none names a Pallas arm,
+so they keep the JAX package's names). The STREAM quartet's names (the
+port's copies of ``tpu_comm/bench/__init__.py`` ``MEMBW_OPS`` and of
 ``tpu_comm/bench/membw.py`` ``TRAFFIC``) and the port's membw arm names.
 The JAX package names the arms after Pallas; the port names them after
 what they run:
@@ -40,6 +42,15 @@ exchange (mesh). A JAX name is refused with an error that names the
 port's arm; there are no aliases.
 """
 
+SWEEP_OPS = (
+    "allreduce",        # native all_reduce
+    "allreduce-ring",   # explicit point-to-point ring (RS+AG)
+    "rs-ag",            # native reduce_scatter + all_gather pair
+    "ppermute",         # one-hop ring shift (the halo primitive)
+    "bcast",            # mask+all_reduce formulation
+    "bcast-tree",       # explicit binomial tree
+    "all-to-all",       # full transpose (the Ulysses/SP resharding primitive)
+)
 MEMBW_OPS = ("copy", "scale", "add", "triad")
 #: element visits (reads + writes) per iteration, STREAM convention
 TRAFFIC = {"copy": 2, "scale": 2, "add": 3, "triad": 3}

@@ -10,7 +10,10 @@ with ``--impl multi`` one launch per ``--t-steps`` steps
 (``kernels.run_multi``, temporal blocking), or with ``--tol`` the
 convergence loop. ``--points 9`` (2D) and
 ``--points 27`` (3D) run the box stencils instead of the star, as their
-own workloads (``stencil2d-9pt``, ``stencil3d-27pt``).
+own workloads (``stencil2d-9pt``, ``stencil3d-27pt``). With
+``--profile DIR`` the timed loop (a ``--tol`` run: its first run and its
+timed runs, as JAX's) runs under ``torch.profiler`` and each rank writes
+``DIR/rank<r>.json`` (``bench/trace.py``); the row is unchanged.
 
 With ``--mesh`` the field is decomposed over a Cartesian mesh of ranks,
 one process each (``comm/launch.py`` starts them), and every step
@@ -45,6 +48,7 @@ from tpu_comm_torch.bench.timing import (
     time_fn,
     time_loop_per_iter,
 )
+from tpu_comm_torch.bench.trace import maybe_profile
 from tpu_comm_torch.kernels import kernels_for, reference, stencil_name
 from tpu_comm_torch.kernels.tiling import (
     check_wave_bc,
@@ -108,6 +112,8 @@ class StencilConfig:
     warmup: int = 3
     reps: int = 10
     jsonl: str | None = None
+    # write a torch.profiler trace of the timed loop to DIR/rank<r>.json
+    profile: str | None = None
     load: str | None = None  # start from this .npy instead of init_field
     dump: str | None = None  # write the post-run field state here
 
@@ -416,9 +422,10 @@ def run_single_device(cfg: StencilConfig) -> dict:
                 bc=cfg.bc, impl=cfg.impl, **kwargs,
             )
 
-        u_fin, iters_run, res = run_conv()
-        t = time_fn(lambda: run_conv()[0], warmup=max(cfg.warmup - 1, 0),
-                    reps=cfg.reps)
+        with maybe_profile(cfg.profile, device):
+            u_fin, iters_run, res = run_conv()
+            t = time_fn(lambda: run_conv()[0],
+                        warmup=max(cfg.warmup - 1, 0), reps=cfg.reps)
         record = {
             "workload": f"{_stencil_tag(cfg)}-conv",
             **base,
@@ -448,9 +455,10 @@ def run_single_device(cfg: StencilConfig) -> dict:
             got, reference.GOLDEN_RUNS[cfg.points](u0, v_iters, bc=cfg.bc),
             cfg.dtype, iters=v_iters,
         )
-    per_iter, t_lo, _ = time_loop_per_iter(
-        run_iters, cfg.iters, warmup=cfg.warmup, reps=cfg.reps
-    )
+    with maybe_profile(cfg.profile, device):
+        per_iter, t_lo, _ = time_loop_per_iter(
+            run_iters, cfg.iters, warmup=cfg.warmup, reps=cfg.reps
+        )
     if cfg.dump:
         np.save(cfg.dump, to_numpy_field(run_iters(cfg.iters)))
     record = {
@@ -525,8 +533,7 @@ def run_rank(cfg: StencilConfig) -> dict | None:
     """One rank's share of a mesh run, inside the default process group
     (world size = the mesh's): returns the row on rank 0, None elsewhere.
     ``cfg`` has passed :func:`_validate_distributed`."""
-    import torch.distributed as dist
-
+    from tpu_comm_torch.comm import launch
     from tpu_comm_torch.comm.halo import halo_bytes_per_iter
     from tpu_comm_torch.domain import Decomposition
     from tpu_comm_torch.kernels.distributed import (
@@ -572,10 +579,7 @@ def run_rank(cfg: StencilConfig) -> dict | None:
     }
 
     def barrier():
-        if device.type == "cuda":
-            dist.barrier(device_ids=[device.index])
-        else:
-            dist.barrier()
+        launch.barrier(device)
 
     def finish(record: dict, field) -> dict | None:
         if cfg.dump:
@@ -596,9 +600,11 @@ def run_rank(cfg: StencilConfig) -> dict | None:
                 **kwargs,
             )
 
-        u_fin, iters_run, res = run_conv()
-        t = time_fn(lambda: run_conv()[0], warmup=max(cfg.warmup - 1, 0),
-                    reps=cfg.reps, barrier=barrier)
+        with maybe_profile(cfg.profile, device):
+            u_fin, iters_run, res = run_conv()
+            t = time_fn(lambda: run_conv()[0],
+                        warmup=max(cfg.warmup - 1, 0), reps=cfg.reps,
+                        barrier=barrier)
         record = {
             "workload": f"{_stencil_tag(cfg)}-dist-conv",
             **base,
@@ -629,10 +635,11 @@ def run_rank(cfg: StencilConfig) -> dict | None:
             ),
             device,
         )
-    per_iter, t_lo, _ = time_loop_per_iter(
-        run_iters, cfg.iters, warmup=cfg.warmup, reps=cfg.reps,
-        barrier=barrier,
-    )
+    with maybe_profile(cfg.profile, device):
+        per_iter, t_lo, _ = time_loop_per_iter(
+            run_iters, cfg.iters, warmup=cfg.warmup, reps=cfg.reps,
+            barrier=barrier,
+        )
     record = {
         "workload": f"{_stencil_tag(cfg)}-dist",
         **base,
@@ -652,38 +659,12 @@ def run_distributed_bench(cfg: StencilConfig) -> dict | None:
     (``comm.launch.run_ranks``); a rank that fails ends the whole run
     with RuntimeError within ``cfg.dist_timeout`` seconds.
     """
-    import os
-
-    import torch.distributed as dist
-
     from tpu_comm_torch.comm import launch
     from tpu_comm_torch.topo import get_device
 
     cfg = _validate_distributed(cfg)
     device = get_device(cfg.backend)
-    backend = launch.backend_for(device.type)
-    world = math.prod(cfg.mesh)
-    if launch.under_torchrun() and not dist.is_initialized():
-        if int(os.environ["WORLD_SIZE"]) != world:
-            raise ValueError(
-                f"--mesh {cfg.mesh} needs {world} ranks, the launcher "
-                f"started {os.environ['WORLD_SIZE']}"
-            )
-        if device.type == "cuda":
-            import torch
-
-            torch.cuda.set_device(
-                int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
-            )
-        with launch.process_group(
-            backend, world, int(os.environ["RANK"]), "env://",
-            cfg.dist_timeout,
-        ):
-            return run_rank(cfg)
-    if world == 1 or dist.is_initialized():
-        with launch.process_group(backend, world,
-                                  timeout_s=cfg.dist_timeout):
-            return run_rank(cfg)
-    return launch.run_ranks(
-        run_rank, world, backend, (cfg,), timeout_s=cfg.dist_timeout
+    return launch.run_world(
+        run_rank, math.prod(cfg.mesh), device, (cfg,),
+        timeout_s=cfg.dist_timeout, what=f"--mesh {cfg.mesh}",
     )

@@ -5,6 +5,9 @@
   or with ``--mesh`` across a Cartesian mesh of ranks with ghost-cell
   halo exchange; the JAX CLI's flag names for what it has, the port's own
   arm names (``bench/__init__.py`` maps them).
+- ``sweep``   — the collective bandwidth sweep (``bench/sweep.py``) over
+  ``torch.distributed``, one rank a device, with the JAX CLI's flags and
+  op names.
 - ``membw``   — the STREAM bandwidth quartet (``bench/membw.py``), with the
   JAX CLI's flags; its arms carry the port's names (``bench/__init__.py``
   maps them).
@@ -22,7 +25,7 @@ import argparse
 import json
 import sys
 
-from tpu_comm_torch.bench import MEMBW_OPS
+from tpu_comm_torch.bench import MEMBW_OPS, SWEEP_OPS
 
 
 def _add_backend_arg(p: argparse.ArgumentParser) -> None:
@@ -79,6 +82,7 @@ def _cmd_stencil(args) -> int:
             warmup=args.warmup,
             reps=args.reps,
             jsonl=args.jsonl,
+            profile=args.profile,
             load=args.load,
             dump=args.dump,
         ))
@@ -88,6 +92,37 @@ def _cmd_stencil(args) -> int:
     # under a launcher every rank runs this; rank 0 alone has the row
     if record is not None:
         print(json.dumps(record, sort_keys=True))
+    return 0
+
+
+def _cmd_sweep(args) -> int:
+    from tpu_comm_torch.bench.sweep import SweepConfig, run_sweep
+
+    cfg = SweepConfig(
+        op=args.op,
+        backend=args.backend,
+        n_devices=args.n_devices,
+        dtype=args.dtype,
+        wire_dtype=args.wire_dtype,
+        acc_dtype=args.acc_dtype,
+        min_bytes=args.min_bytes,
+        max_bytes=args.max_bytes,
+        iters=args.iters,
+        warmup=args.warmup,
+        reps=args.reps,
+        verify=not args.no_verify,
+        jsonl=args.jsonl,
+        dist_timeout=args.dist_timeout,
+    )
+    try:
+        records = run_sweep(cfg)
+    except (ValueError, RuntimeError, AssertionError, OSError,
+            TimeoutError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    # under a launcher every rank runs this; rank 0 alone has the rows
+    for r in records or ():
+        print(json.dumps(r, sort_keys=True))
     return 0
 
 
@@ -148,8 +183,8 @@ def _cmd_info(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m tpu_comm_torch",
-        description="PyTorch/CUDA port of tpu_comm: the stencil and STREAM "
-        "bandwidth drivers",
+        description="PyTorch/CUDA port of tpu_comm: the stencil, collective "
+        "sweep and STREAM bandwidth drivers",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -270,6 +305,13 @@ def build_parser() -> argparse.ArgumentParser:
         "--jsonl", default=None, help="append the result row to this file"
     )
     p_st.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="write a torch.profiler trace of the timed loop to "
+        "DIR/rank<r>.json, one Chrome trace a rank (CPU activities, and "
+        "CUDA kernels on the card; open in Perfetto); a card trace with "
+        "no kernel event is an error and is not kept",
+    )
+    p_st.add_argument(
         "--load", default=None, metavar="NPY",
         help="start from this .npy field instead of the default init",
     )
@@ -278,6 +320,50 @@ def build_parser() -> argparse.ArgumentParser:
         help="write the post-run field to this .npy (bfloat16 as float32)",
     )
     p_st.set_defaults(func=_cmd_stencil)
+
+    p_sw = sub.add_parser(
+        "sweep", help="collective bandwidth sweep (allreduce/bcast/rs-ag/...)"
+    )
+    _add_backend_arg(p_sw)
+    p_sw.add_argument("--op", choices=list(SWEEP_OPS), default="allreduce")
+    p_sw.add_argument(
+        "--n-devices", type=int, default=None,
+        help="ranks, one process and one device each (default: the "
+        "launcher's world, else every CUDA device on the card, else 1 on "
+        "the CPU); without RANK/WORLD_SIZE in the environment the command "
+        "starts its own ranks",
+    )
+    p_sw.add_argument(
+        "--dtype", choices=["float32", "bfloat16", "float16"],
+        default="float32",
+    )
+    p_sw.add_argument(
+        "--wire-dtype", choices=["bfloat16", "float16"], default=None,
+        help="explicit-ring wire dtype (mixed-precision arm)",
+    )
+    p_sw.add_argument(
+        "--acc-dtype", choices=["float32"], default=None,
+        help="explicit-ring accumulation dtype",
+    )
+    p_sw.add_argument("--min-bytes", type=int, default=1 << 10)
+    p_sw.add_argument(
+        "--max-bytes", type=int, default=1 << 26,
+        help="largest per-rank buffer (bytes); default 64 MiB, pass "
+        "1073741824 (1 GiB) on the card for the full BASELINE.json:8 "
+        "envelope",
+    )
+    p_sw.add_argument("--iters", type=int, default=20)
+    p_sw.add_argument("--warmup", type=int, default=2)
+    p_sw.add_argument("--reps", type=int, default=5)
+    p_sw.add_argument("--no-verify", action="store_true")
+    p_sw.add_argument("--jsonl", default=None)
+    p_sw.add_argument(
+        "--dist-timeout", type=float, default=600.0, metavar="SECONDS",
+        help="limit for a collective, the rendezvous and the whole run of "
+        "the ranks the command starts; when one rank fails the rest are "
+        "killed and the command exits non-zero",
+    )
+    p_sw.set_defaults(func=_cmd_sweep)
 
     p_mb = sub.add_parser(
         "membw",

@@ -2,7 +2,7 @@
 
 JAX runs one process over N devices; ``torch.distributed`` runs one
 process per rank. Three ways into a group, all ending in the same
-per-rank function:
+per-rank function (:func:`run_world` picks one):
 
 - world size 1: the calling process creates a group of one (no child);
 - ``RANK``/``WORLD_SIZE`` in the environment (``torchrun``): the process
@@ -82,6 +82,48 @@ def process_group(
     finally:
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
+
+
+def barrier(device: torch.device) -> None:
+    """Wait until every rank of the default group gets here (on a CUDA
+    device, through a collective on that device)."""
+    if device.type == "cuda":
+        dist.barrier(device_ids=[device.index])
+    else:
+        dist.barrier()
+
+
+def run_world(target, world: int, device: torch.device, args: tuple = (),
+              timeout_s: float = DEFAULT_TIMEOUT_S, what: str = "the run"):
+    """Run ``target(*args)`` on every rank of a world of ``world`` ranks
+    in the default process group (NCCL for a CUDA ``device``, gloo for
+    the CPU); returns rank 0's result, None on the other ranks where a
+    launcher started this process as one of many.
+
+    - ``RANK``/``WORLD_SIZE`` in the environment (``torchrun``): join the
+      group the launcher gives, whose size must be ``world`` (else
+      ValueError naming ``what``);
+    - a world of one, or a group already up: run in this process;
+    - otherwise :func:`run_ranks` spawns the ranks.
+    """
+    backend = backend_for(device.type)
+    if under_torchrun() and not dist.is_initialized():
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise ValueError(
+                f"{what} needs {world} ranks, the launcher started "
+                f"{os.environ['WORLD_SIZE']}"
+            )
+        if device.type == "cuda":
+            torch.cuda.set_device(
+                int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
+            )
+        with process_group(backend, world, int(os.environ["RANK"]),
+                           "env://", timeout_s):
+            return target(*args)
+    if world == 1 or dist.is_initialized():
+        with process_group(backend, world, timeout_s=timeout_s):
+            return target(*args)
+    return run_ranks(target, world, backend, args, timeout_s=timeout_s)
 
 
 def _rank_main(rank, world, backend, use_cuda, run_dir, timeout_s, target,
