@@ -68,7 +68,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    3D star at full size (its kernel launched once a pass, and no other),
    and on a mesh of one ``--impl multi --t-steps 4`` (the width-4 chained
    exchange, no kernel) for the star in 1D, 2D,
-   3D and both boxes, each bc; each row must say ``platform: cuda`` and
+   3D and both boxes, each bc (the 512^3 ones unverified: their goldens
+   cost a minute); each row must say ``platform: cuda`` and
    ``verified: true``, the run's kernels must have launched and no
    other; the collective sweep at world size 1 (NCCL), ``sweep --op OP
    --n-devices 1`` for every op (1 KiB-64 MiB) and ``allreduce-ring
@@ -79,7 +80,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
    --pack kernel --bc periodic --iters 20 --profile DIR`` (and the same
    run without ``--profile``, for the cost of the trace), whose trace
    must hold the block kernel and an NCCL kernel; its ten device ops
-   that took the most time are printed with their counts;
+   that took the most time are printed with their counts; the halo
+   microbench, ``halo --mesh 1[,1[,1]]`` for dims 1-3 (16 KiB-64 MiB a
+   rank, periodic: the NCCL self-exchange's cost a step, 0.0 GB/s), 3D
+   also ``--width 2`` and ``--halo-wire bfloat16``; the same 3D block
+   step unfused and as ``--fuse-sweep 1,20`` (each dispatch a CUDA
+   graph replay; every kernel's launches, replays included, equal the
+   eager run's a step times the run's steps), ``--impl partitioned
+   --halo-parts 4`` (2D), ``--halo-wire bfloat16`` for the block (2D,
+   3D ``--pack kernel``), wave (2D) and multi (3D) arms, and
+   ``halosweep --widths 1,2,4,8`` (its summary line printed); and the
+   graph card check: a 20-step chain of the 3D block and stream steps
+   replayed from its CUDA graph, bitwise equal to the eager chain, its
+   launches a replay those of the capture and of the eager chain;
 5. times at the full float32 sizes (CUDA events): kernel, plain version,
    one library call computing the same function (a yardstick the port
    never calls), and for each stencil a device-to-device ``copy_`` and the
@@ -288,6 +301,11 @@ MULTI_ITERS = 96
 #: run (each bc)
 MESH_MULTI_T = 4
 MESH_MULTI_KEYS = (1, 2, 3, 9, 27)
+#: the mesh multi runs that skip --verify: the 512^3 ones, whose golden
+#: (t steps of the 3D star or the 27-point box on the host) cost a minute
+#: of the script's time limit; the arm is plain PyTorch, held against JAX
+#: in the CPU tests and verified here in 1D, 2D and 9-point
+MESH_MULTI_UNVERIFIED = (3, 27)
 #: the sweep runs of phase 4, each at world size 1: (--op, more argv); the
 #: default range 1 KiB-64 MiB, and allreduce to 1 GiB (BASELINE.json:8)
 SWEEP_RUNS = [(op, []) for op in (
@@ -306,6 +324,34 @@ PROFILE_ARGV = ["stencil", "--dim", "3", "--size", str(SIZES[3]), "--mesh",
                 "--verify", "--verify-iters", "1"]
 #: device ops of the profiled run printed, the most time first
 PROFILE_TOP = 10
+#: the halo sweeps of phase 4, each ``halo --mesh 1[,1[,1]]`` (float32,
+#: periodic, the default 16 KiB-64 MiB a rank): their extra argv
+HALO_RUNS = [["--dim", "1"], ["--dim", "2"], ["--dim", "3"],
+             ["--dim", "3", "--width", "2"],
+             ["--dim", "3", "--halo-wire", "bfloat16"]]
+#: the fused runs of phase 4: the profiled 3D block step unfused, then
+#: as --fuse-sweep 1,20 (one CUDA graph replay a step, and a chain)
+FUSE_ARGV = ["stencil", "--dim", "3", "--size", str(SIZES[3]), "--mesh",
+             "1,1,1", "--impl", "block", "--pack", "kernel", "--bc",
+             "periodic", "--iters", str(MESH_ITERS), "--warmup",
+             str(MESH_WARMUP), "--reps", str(MESH_REPS), "--verify",
+             "--verify-iters", str(MESH_VERIFY_ITERS)]
+FUSE_SWEEP = (1, MESH_ITERS)
+#: the bfloat16-wire runs of phase 4 on a periodic mesh of one: (key,
+#: --impl, --pack, more argv)
+WIRE_RUNS = [(2, "block", "fused", []), (3, "block", "kernel", []),
+             (2, "wave", "fused", []),
+             (3, "multi", "fused", ["--t-steps", str(MESH_MULTI_T)])]
+#: the partitioned run of phase 4 (2D, periodic, a mesh of one)
+PARTS = 4
+#: the deep-halo sweep of phase 4
+HALOSWEEP_ARGV = ["halosweep", "--dim", "2", "--size", str(SIZES[2]),
+                  "--mesh", "1,1", "--bc", "periodic", "--widths",
+                  "1,2,4,8", "--iters", "64"]
+#: steps of the graph-replay check, and its arms (3D, periodic, a mesh of
+#: one): --impl -> --pack
+GRAPH_STEPS = 20
+GRAPH_ARMS = {"block": "kernel", "stream": "fused"}
 MEMBW_N = 1 << 26
 #: 25 rows of 128: the last chunk of 8 rows is ragged
 MEMBW_RAGGED = 128 * 8 * 3 + 128
@@ -636,6 +682,19 @@ def _workload(key: int) -> str:
 #: the NumPy goldens phase 4 keeps (each of a 512^3 field holds 1 GiB of
 #: host memory: its input and its result)
 GOLDEN_CACHE = 8
+#: the stencil driver's --verify steps of the halosweep run: its default 50
+#: rounded up to each of --widths 1,2,4,8
+HALOSWEEP_VERIFY_ITERS = (50, 52, 56)
+#: the goldens of phase 4's mesh runs (the stencil driver's field,
+#: float32) computed on the host while the card works, those of the most
+#: host time first: (--points or 0, bc, field dim, the steps of each)
+GOLDEN_PREFETCH = [
+    (0, "periodic", 2, (MESH_VERIFY_ITERS, *HALOSWEEP_VERIFY_ITERS)),
+    (0, "periodic", 3, (MESH_VERIFY_ITERS, MESH_MULTI_T, MESH_ITERS)),
+    (0, "dirichlet", 3, (MESH_VERIFY_ITERS,)),
+    (27, "periodic", 3, (MESH_VERIFY_ITERS,)),
+    (27, "dirichlet", 3, (MESH_VERIFY_ITERS,)),
+]
 
 
 def share_goldens() -> None:
@@ -644,23 +703,66 @@ def share_goldens() -> None:
     512^3 27-point golden takes seconds on the host), so the driver's
     golden runs (``reference.GOLDEN_RUNS``) are wrapped to keep the last
     GOLDEN_CACHE results and hand one back where the input field is equal
-    (``np.array_equal``) and the rest of the key the same. The driver's
+    (``np.array_equal``) and the rest of the key the same; a golden of
+    more steps than one kept goes on from the kept one. The goldens of
+    GOLDEN_PREFETCH are computed meanwhile, one host thread a chain
+    (NumPy leaves the GIL for its array loops), while the card runs
+    phases 3 and 4; a run that needs one waits for it. The stencil driver's
     check itself is unchanged."""
+    import threading
+    from concurrent.futures import Future
+
     import numpy as np
 
     from tpu_comm_torch.kernels import reference
 
     kept = []  # (points, iters, bc, input, golden), the newest last
+    chains = []  # (points, bc, input, {iters: Future})
+
+    def run_chain(run, u, bc, futures):
+        done = 0
+        for n, fut in futures.items():
+            try:
+                u = run(u, n - done, bc=bc)
+            except BaseException as e:  # every later step fails with it
+                for later in list(futures.values())[
+                        list(futures).index(n):]:
+                    later.set_exception(e)
+                return
+            done = n
+            fut.set_result(u)
+
+    for points, bc, dim, steps in GOLDEN_PREFETCH:
+        u0 = reference.init_field((SIZES[dim],) * dim, dtype=np.float32)
+        futures = {n: Future() for n in sorted(steps)}
+        chains.append((points, bc, u0, futures))
+        threading.Thread(
+            target=run_chain, daemon=True,
+            args=(reference.GOLDEN_RUNS[points], u0, bc, futures),
+        ).start()
 
     for points, run in list(reference.GOLDEN_RUNS.items()):
         def shared(u0, iters, bc="dirichlet", _run=run, _points=points):
-            for i, (p, it, b, u, want) in enumerate(kept):
-                if ((p, it, b) == (_points, iters, bc)
+            for p, b, u, futures in chains:
+                if ((p, b) == (_points, bc) and iters in futures
                         and u.shape == u0.shape and u.dtype == u0.dtype
                         and np.array_equal(u, u0)):
-                    kept.append(kept.pop(i))
-                    return want
-            want = _run(u0, iters, bc=bc)
+                    return futures[iters].result()
+            # the most steps kept of this (stencil, bc, input) up to
+            # iters: the golden steps on from there (a golden is a loop
+            # of steps, so that is the same field)
+            best, start = None, None
+            for i, (p, it, b, u, want) in enumerate(kept):
+                if ((p, b) == (_points, bc) and it <= iters
+                        and (best is None or it > kept[best][1])
+                        and u.shape == u0.shape and u.dtype == u0.dtype
+                        and np.array_equal(u, u0)):
+                    best, start = i, want
+            if best is not None and kept[best][1] == iters:
+                kept.append(kept.pop(best))
+                return start
+            want = (_run(u0, iters, bc=bc) if best is None
+                    else _run(start, iters - kept[best][1], bc=bc))
             kept.append((_points, iters, bc, u0.copy(), want))
             del kept[:-GOLDEN_CACHE]
             return want
@@ -732,13 +834,15 @@ def drive_mesh(torch, counters) -> dict:
         for n, (key, impl, pack, bc, extra) in enumerate(runs):
             dim = DIM[key]
             tol = "--tol" in extra
+            verify = not (impl == "multi" and key in MESH_MULTI_UNVERIFIED)
             path = Path(tmp) / f"mesh{n}.jsonl"
             for w in counters.values():
                 w.launches = 0
             argv = ["stencil", "--mesh", ",".join(["1"] * dim),
                     *_stencil_argv(key), "--size",
                     str(SIZES[dim]),
-                    "--impl", impl, "--pack", pack, "--bc", bc, "--verify",
+                    "--impl", impl, "--pack", pack, "--bc", bc,
+                    *(["--verify"] if verify else []),
                     "--verify-iters", str(MESH_VERIFY_ITERS), "--iters",
                     str(8 if tol else MESH_ITERS), "--warmup",
                     str(MESH_WARMUP), "--reps", str(MESH_REPS), "--jsonl",
@@ -750,7 +854,7 @@ def drive_mesh(torch, counters) -> dict:
                 fail(f"{what} exited {rc}")
             row = json.loads(path.read_text().splitlines()[-1])
             arm = "overlap" if impl == "auto" else impl
-            want = {"platform": "cuda", "verified": True, "impl": arm,
+            want = {"platform": "cuda", "verified": verify, "impl": arm,
                     "pack": pack, "mesh": [1] * dim, "topo_plan": None,
                     "workload": f"{_workload(key)}-dist"
                     + ("-conv" if tol else "")}
@@ -825,8 +929,14 @@ def drive_sweep(torch, counters) -> None:
             want = {"platform": "cuda", "verified": True, "mesh": [1],
                     "gbps_bus": 0.0, "workload": f"sweep-{op}"}
             for r in rows:
+                # bcast-tree does nothing at one rank (JAX returns x): its
+                # slope is Python noise and may fall below the clock's
+                # resolution, where the row reports null rates, as JAX's
+                unresolved = op == "bcast-tree" and \
+                    r["below_timing_resolution"]
                 got = {k: r.get(k) for k in want}
-                if got != want:
+                if got != {**want, **({"gbps_bus": None} if unresolved
+                                      else {})}:
                     fail(f"{what}: a row says {got}, expected {want}")
             if any(counts.values()):
                 fail(f"{what} launched kernels of the port: {counts}")
@@ -914,6 +1024,223 @@ def drive_profile(torch, counters) -> None:
             "top_device_ops": top(ops),
             "top_host_ops": top(host),
             "elapsed_s": time.perf_counter() - T0}})
+
+
+def _quiet_main(argv) -> tuple[int, str]:
+    """``cli.main(argv)`` with its standard output kept, not printed."""
+    import contextlib
+    import io
+
+    from tpu_comm_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def _run_counted(counters, argv) -> tuple[list, dict]:
+    """Phase 4's frame around one run: every count set to 0 just before,
+    read just after; the run must exit 0. Returns its printed rows and
+    the counts."""
+    for w in counters.values():
+        w.launches = 0
+    rc, out = _quiet_main(argv)
+    counts = {k: w.launches for k, w in counters.items()}
+    if rc != 0:
+        fail(f"{' '.join(argv)} exited {rc}")
+    return [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")], counts
+
+
+def _want_row(what: str, row: dict, want: dict) -> None:
+    got = {k: row.get(k) for k in want}
+    if got != want:
+        fail(f"{what}: row says {got}, expected {want}")
+
+
+def _want_launched(what: str, counts: dict, expected: set) -> None:
+    launched = {k for k, c in counts.items() if c}
+    if launched != expected:
+        fail(f"{what} launched {sorted(launched)}, expected "
+             f"{sorted(expected)}: {counts}")
+
+
+def drive_halo(torch, counters) -> dict:
+    """Phase 4, the halo microbench and the shaping axes at world size 1:
+    the ``halo`` sweeps of HALO_RUNS (no kernel; 0.0 GB/s, the cost of the
+    self-exchange a step), the 3D block step unfused and as
+    ``--fuse-sweep 1,20`` (CUDA graph replays; launches counted through
+    the replays, held to the eager run's launches a step), the
+    partitioned exchange, the bfloat16 wire of WIRE_RUNS and
+    ``halosweep``; every row verified on ``cuda``. Returns each kernel's
+    launches summed over the runs."""
+    launches = {name: 0 for name in counters}
+    for extra in HALO_RUNS:
+        dim = int(extra[1])
+        argv = ["halo", "--mesh", ",".join(["1"] * dim), *extra]
+        rows, counts = _run_counted(counters, argv)
+        what = " ".join(argv)
+        if any(counts.values()):
+            fail(f"{what} launched kernels of the port: {counts}")
+        for row in rows:
+            _want_row(what, row, {
+                "platform": "cuda", "verified": True, "mesh": [1] * dim,
+                "workload": f"halo{dim}d", "halo_gbps_per_chip": 0.0,
+                "halo_bytes_per_chip_per_iter": 0})
+        emit({"main_path": {
+            "halo": extra, "mesh": [1] * dim, "launches": 0,
+            "secs_per_iter": {r["size"]: r["secs_per_iter"] for r in rows},
+            "local_size": {r["size"]: r["local_size"] for r in rows},
+            "elapsed_s": time.perf_counter() - T0}})
+
+    # the fused step: per-step launches from the eager run, then each
+    # fused row held to them over its own steps (verify + the slope's)
+    block, pack = KERNELS["block"][3][0], PACK_KERNEL[0]
+    secs, per_step = {}, None
+    for fuse in (None, *FUSE_SWEEP):
+        argv = FUSE_ARGV + ([] if fuse is None else
+                            ["--fuse-steps", str(fuse)])
+        (row,), counts = _run_counted(counters, argv)
+        what = " ".join(argv[1:])
+        _want_row(what, row, {"platform": "cuda", "verified": True,
+                              "impl": "block", "pack": "kernel",
+                              "fuse_steps": fuse})
+        _want_launched(what, counts, {block, pack})
+        verify = MESH_VERIFY_ITERS if fuse is None else max(
+            fuse, MESH_VERIFY_ITERS)
+        steps = verify + (MESH_WARMUP + MESH_REPS) * 4 * MESH_ITERS
+        if per_step is None:
+            per_step = {k: counts[k] / steps for k in (block, pack)}
+        want = {k: per_step[k] * steps for k in (block, pack)}
+        if {k: counts[k] for k in want} != want:
+            fail(f"{what}: launches {counts}, expected {want} "
+                 f"({per_step} a step over {steps} steps)")
+        for k in want:
+            launches[k] += counts[k]
+        secs["eager" if fuse is None else f"fuse{fuse}"] = \
+            row["secs_per_iter"]
+    emit({"fused_step": {"argv": FUSE_ARGV[1:], "secs_per_iter": secs,
+                         "launches_a_step": per_step,
+                         "elapsed_s": time.perf_counter() - T0}})
+
+    argv = ["stencil", "--dim", "2", "--size", str(SIZES[2]), "--mesh",
+            "1,1", "--bc", "periodic", "--impl", "partitioned",
+            "--halo-parts", str(PARTS), "--iters", str(MESH_ITERS),
+            "--warmup", str(MESH_WARMUP), "--reps", str(MESH_REPS),
+            "--verify", "--verify-iters", str(MESH_VERIFY_ITERS)]
+    (row,), counts = _run_counted(counters, argv)
+    _want_row(" ".join(argv), row, {
+        "platform": "cuda", "verified": True, "impl": "partitioned",
+        "halo_parts": PARTS, "mesh": [1, 1]})
+    _want_launched(" ".join(argv), counts, set())
+    emit({"main_path": {"mesh": [1, 1], "impl": "partitioned",
+                        "halo_parts": PARTS, "launches": 0,
+                        "secs_per_iter": row["secs_per_iter"],
+                        "elapsed_s": time.perf_counter() - T0}})
+
+    for key, impl, pack_impl, extra in WIRE_RUNS:
+        dim = DIM[key]
+        argv = ["stencil", "--dim", str(dim), "--size", str(SIZES[dim]),
+                "--mesh", ",".join(["1"] * dim), "--bc", "periodic",
+                "--impl", impl, "--pack", pack_impl, "--halo-wire",
+                "bfloat16", "--iters", str(MESH_ITERS), "--warmup",
+                str(MESH_WARMUP), "--reps", str(MESH_REPS), "--verify",
+                "--verify-iters", str(MESH_VERIFY_ITERS), *extra]
+        (row,), counts = _run_counted(counters, argv)
+        what = " ".join(argv[1:])
+        _want_row(what, row, {"platform": "cuda", "verified": True,
+                              "impl": impl, "wire_dtype": "bfloat16",
+                              "pack": pack_impl})
+        expected = set()
+        if impl == "wave":
+            expected.add(MESH_WAVE_KERNELS[key])
+        elif impl in KERNELS:
+            expected.add(KERNELS[impl][key][0])
+        if pack_impl == "kernel":
+            expected.add(PACK_KERNEL[0])
+        _want_launched(what, counts, expected)
+        for k in expected:
+            launches[k] += counts[k]
+        emit({"main_path": {
+            "mesh": [1] * dim, "stencil": _workload(key), "impl": impl,
+            "pack": pack_impl, "bc": "periodic", "wire_dtype": "bfloat16",
+            "launches": {k: counts[k] for k in sorted(expected)},
+            "secs_per_iter": row["secs_per_iter"],
+            "halo_bytes_per_chip_per_iter":
+                row["halo_bytes_per_chip_per_iter"],
+            "elapsed_s": time.perf_counter() - T0}})
+
+    lines, counts = _run_counted(counters, HALOSWEEP_ARGV)
+    rows, summary = lines[:-1], lines[-1]
+    _want_launched(" ".join(HALOSWEEP_ARGV), counts, set())
+    for row in rows:
+        _want_row("halosweep", row, {"platform": "cuda", "verified": True,
+                                     "impl": "overlap", "mesh": [1, 1]})
+    if summary.get("mode") != "halosweep" or not summary["verified"]:
+        fail(f"halosweep: summary {summary}")
+    emit({"halosweep": {**summary, "elapsed_s": time.perf_counter() - T0}})
+    return launches
+
+
+def _wrapper_name(w) -> str:
+    return f"{w.__module__.rsplit('.', 1)[-1]}.{w.__name__}"
+
+
+def check_graph_replay(torch) -> dict:
+    """Phase 4's card check of the graph runner: a chain of GRAPH_STEPS
+    steps of each arm of GRAPH_ARMS (3D, periodic, float32, a mesh of one
+    through NCCL, full size) run eagerly, then replayed from its CUDA
+    graph (the second call of a cached chain replays and nothing else):
+    bitwise equal. The launches a replay adds are what the capture
+    recorded, and equal the eager chain's."""
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.domain import Decomposition
+    from tpu_comm_torch.kernels import distributed as pdist
+    from tpu_comm_torch.kernels import launch_wrappers
+    from tpu_comm_torch.topo import make_cart_mesh
+
+    result = {}
+    with launch.process_group("nccl"):
+        dec = Decomposition(make_cart_mesh(3, periodic=True),
+                            (SIZES[3],) * 3)
+        u = random_field(torch, dec.local_shape, torch.float32, 15)
+        wrappers = launch_wrappers()
+        for impl, pack_impl in GRAPH_ARMS.items():
+            before = [w.launches for w in wrappers]
+            want = pdist.run_distributed(u, dec, GRAPH_STEPS, bc="periodic",
+                                         impl=impl, pack=pack_impl)
+            eager = {_wrapper_name(w): w.launches - b
+                     for w, b in zip(wrappers, before) if w.launches != b}
+            graphs = {}
+            pdist.run_distributed_fused(u, dec, GRAPH_STEPS, GRAPH_STEPS,
+                                        bc="periodic", impl=impl,
+                                        pack=pack_impl, graphs=graphs)
+            before = [w.launches for w in wrappers]
+            got, _ = pdist.run_distributed_fused(
+                u, dec, GRAPH_STEPS, GRAPH_STEPS, bc="periodic", impl=impl,
+                pack=pack_impl, graphs=graphs)
+            torch.cuda.synchronize()
+            replayed = {_wrapper_name(w): w.launches - b
+                        for w, b in zip(wrappers, before) if w.launches != b}
+            (chain,) = graphs.values()
+            captured = {_wrapper_name(w): n
+                        for w, n in chain.captured.items()}
+            pdist.release_graphs(graphs)
+            if chain.replays != 1:
+                fail(f"graph check {impl}: {chain.replays} replays, not 1")
+            if not torch.equal(got, want):
+                fail(f"graph check {impl}: the replayed chain differs from "
+                     f"the eager one by {(got - want).abs().max().item()}")
+            if not replayed == captured == eager:
+                fail(f"graph check {impl}: launches of the replay "
+                     f"{replayed}, captured {captured}, eager {eager}")
+            result[impl] = {"steps": GRAPH_STEPS, "pack": pack_impl,
+                            "launches_a_replay": captured,
+                            "tolerance": "bitwise (torch.equal)"}
+    emit({"check": {"graph_replay": result,
+                    "elapsed_s": time.perf_counter() - T0}})
+    return result
 
 
 def library_call(torch, key: int):
@@ -2252,6 +2579,7 @@ def main() -> int:
 
     mods = family_modules()
     counters = launch_counters(mods)
+    share_goldens()  # its host threads overlap phases 3 and 4
     errs = {arm: check_kernels(torch, mods, arm) for arm in KERNELS}
     ghost_errs = check_ghost_kernels(torch, mods)
     multi_errs = check_multi(torch, mods)
@@ -2260,13 +2588,15 @@ def main() -> int:
     check_stream_loads(libs)
     check_chunked_access(libs)
     check_multi_spills(libs)
-    share_goldens()
     launches = drive_main_path(torch, counters)
     multi_launches = drive_multi(torch, counters)
     membw_launches = drive_membw(torch, counters)
     mesh_launches = drive_mesh(torch, counters)
     drive_sweep(torch, counters)
     drive_profile(torch, counters)
+    for name, n in drive_halo(torch, counters).items():
+        mesh_launches[name] += n
+    check_graph_replay(torch)
     times = {arm: measure_times(torch, mods, arm) for arm in KERNELS}
     multi_times = measure_multi(torch, mods)
     ghost_times = measure_ghost(torch, mods)

@@ -287,7 +287,7 @@ def test_sub_fp32_driver_verifies_against_golden(points, dtype):
     (["--points", "27", "--dim", "3", "--impl", "pallas"],
      "the port calls this arm 'block'"),
     (["--points", "27", "--dim", "3", "--mesh", "2,2,1", "--impl",
-      "partitioned"], "--impl partitioned is not yet ported"),
+      "partitioned"], "stencil='27pt' supports impl='torch'|'overlap'|"),
     (["--points", "27", "--dim", "3", "--mesh", "2,2,1", "--pack", "kernel",
       "--impl", "block"],
      "pack='kernel' does not apply to the box stencils"),

@@ -1033,3 +1033,85 @@ def test_profile_traces_the_kernels_and_nccl_on_the_card(card, tmp_path):
     ops = trace_ops(tmp_path / "rank0.json")
     assert any("jacobi3d_block" in name for name in ops), sorted(ops)
     assert any("nccl" in name.lower() for name in ops), sorted(ops)
+
+
+def _mesh_of_one(dim, bc, size, dtype=torch.float32, device="cuda"):
+    """The decomposition of a mesh of one and a seeded block on
+    ``device``."""
+    from tpu_comm_torch.domain import Decomposition
+    from tpu_comm_torch.kernels.reference import init_field
+    from tpu_comm_torch.topo import make_cart_mesh
+
+    dec = Decomposition(make_cart_mesh(dim, periodic=bc == "periodic"),
+                        (size,) * dim)
+    u0 = init_field((size,) * dim, kind="random", seed=dim)
+    return dec, dec.scatter(u0, device, dtype)
+
+
+@pytest.mark.parametrize("impl", ["block", "stream"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_graph_replayed_chain_equals_eager(card, dim, impl):
+    """A chain of 20 steps captured in a CUDA graph (exchange through
+    NCCL to the own rank included) and replayed, once (fuse 20) and four
+    times (fuse 5), equals the eager run bitwise; the counters read the
+    launches the card made, the same as the eager run's."""
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.kernels import distributed as pdist, launch_wrappers
+
+    size = {2: 512, 3: 64}[dim]
+    with launch.process_group("nccl"):
+        dec, u = _mesh_of_one(dim, "periodic", size)
+        keep = u.clone()
+        wrappers = launch_wrappers()
+        before = [w.launches for w in wrappers]
+        want = pdist.run_distributed(u, dec, 20, bc="periodic", impl=impl)
+        eager = [w.launches - b for w, b in zip(wrappers, before)]
+        for fuse in (20, 5):
+            graphs = {}
+            before = [w.launches for w in wrappers]
+            got, n = pdist.run_distributed_fused(
+                u, dec, 20, fuse, bc="periodic", impl=impl, graphs=graphs)
+            torch.cuda.synchronize()
+            (chain,) = graphs.values()
+            assert n == 20 // fuse and chain.replays == n - 1
+            assert [w.launches - b for w, b in zip(wrappers, before)] == eager
+            assert sum(chain.captured.values()) == sum(eager) // n
+            assert torch.equal(got, want) and torch.equal(u, keep)
+            pdist.release_graphs(graphs)
+
+
+@pytest.mark.parametrize("impl", ["torch", "overlap", "block"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_bf16_wire_at_world_size_1_equals_cpu(card, dim, impl):
+    """A bfloat16 halo wire through NCCL at world size 1 (the self
+    transfer narrowed and widened) equals the CPU run of the same arm,
+    whose wrap onto the own rank rounds the same way."""
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.kernels import distributed as pdist
+
+    size = {2: 256, 3: 48}[dim]
+    dec, u_cpu = _mesh_of_one(dim, "periodic", size, device="cpu")
+    want = pdist.run_distributed(u_cpu, dec, 6, bc="periodic", impl=impl,
+                                 halo_wire="bfloat16")
+    exact = pdist.run_distributed(u_cpu, dec, 6, bc="periodic", impl=impl)
+    assert not torch.equal(want, exact)  # the wire rounds
+    with launch.process_group("nccl"):
+        got = pdist.run_distributed(u_cpu.cuda(), dec, 6, bc="periodic",
+                                    impl=impl, halo_wire="bfloat16")
+        assert torch.equal(got.cpu(), want)
+
+
+def test_halo_sweep_at_world_size_1_on_the_card(card):
+    """``halo`` through NCCL at world size 1: verified rows, 0.0 GB/s
+    (an axis of one rank moves nothing), with and without a wire."""
+    from tpu_comm_torch.bench.halosweep import HaloSweepConfig, run_halo_sweep
+
+    for wire in (None, "bfloat16"):
+        rows = run_halo_sweep(HaloSweepConfig(
+            dim=3, mesh=(1, 1, 1), max_bytes=1 << 18, iters=4, warmup=1,
+            reps=2, halo_wire=wire))
+        assert [r["size"] for r in rows][0] == 16384
+        for r in rows:
+            assert r["platform"] == "cuda" and r["verified"] is True
+            assert r["halo_gbps_per_chip"] == 0.0
+            assert r.get("wire_dtype") == wire

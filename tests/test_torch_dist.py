@@ -801,7 +801,7 @@ def test_cli_joins_the_group_a_launcher_gives_it(tmp_path):
     (["--dim", "2", "--size", "64", "--mesh", "2,2", "--impl", "lax"],
      "the port calls this arm 'torch'"),
     (["--dim", "2", "--size", "64", "--mesh", "2,2", "--impl",
-      "partitioned"], "not yet ported; see ROADMAP.md"),
+      "partitioned", "--halo-parts", "0"], "--halo-parts must be >= 1"),
     (["--dim", "2", "--size", "64", "--mesh", "4"], "has 1 axes, --dim is 2"),
     (["--dim", "2", "--size", "64", "--mesh", "2,0"], "positive sizes"),
     (["--dim", "3", "--size", "16", "--mesh", "2,2,1", "--impl", "wave",
@@ -834,8 +834,8 @@ def test_library_refuses_what_jax_refuses():
     assert str(port.value) == str(ref.value)
     for kwargs, message in [
         ({"stencil": "27pt"}, "stencil='27pt' needs a 3D mesh, got 2D"),
-        ({"halo_wire": "bfloat16"}, "halo_wire is not yet ported"),
-        ({"halo_width": 2}, "halo_width is not yet ported"),
+        ({"halo_wire": "int8"}, "halo_wire must be a floating dtype"),
+        ({"halo_width": 2}, r"unknown kwargs .*\['halo_width'\]"),
         ({"rows": 3}, "unknown kwargs"),
     ]:
         with pytest.raises(ValueError, match=message):
@@ -883,7 +883,7 @@ def test_box_driver_dump_equals_jax_driver(tmp_path, points, size, mesh,
 
 def test_box_library_refuses_what_jax_refuses():
     """The same messages where JAX has the case; the port's wording for
-    the arms it has not ported and its own pack name."""
+    the arms it has no box form of and its own pack name."""
     cart2 = make_cart_mesh(2, shape=(2, 2), world=4, rank=0)
     cart3 = make_cart_mesh(3, shape=(2, 2, 1), world=4, rank=0)
     jcart3 = jmake_cart_mesh(3, backend="cpu-sim", shape=(2, 2, 1))
@@ -903,7 +903,7 @@ def test_box_library_refuses_what_jax_refuses():
         (cart3, "block", {"stencil": "27pt", "pack": "kernel"},
          "pack='kernel' does not apply to the box stencils"),
         (cart2, "overlap", {"stencil": "9pt", "halo_width": 2},
-         "halo_width is not yet ported"),
+         r"unknown kwargs for stencil='9pt' impl='overlap': \['halo_width'"),
     ]:
         with pytest.raises(ValueError, match=message):
             pdist.make_local_step(cart, "dirichlet", impl, **kwargs)

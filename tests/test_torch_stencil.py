@@ -140,7 +140,7 @@ REFUSED_IMPLS = {
     "pallas-wave": "the JAX package's name; the port calls this arm 'wave'",
     "pallas-multi": "the JAX package's name; the port calls this arm "
                     "'multi'",
-    "partitioned": "not yet ported; see ROADMAP.md",
+    "partitioned": "is an arm of a mesh run: pass --mesh",
     "overlap": "is an arm of a mesh run: pass --mesh",
 }
 REFUSED_EXTRA = {"wave": ["--bc", "periodic"]}
@@ -151,8 +151,8 @@ REFUSED_EXTRA = {"wave": ["--bc", "periodic"]}
                                   "pallas-multi", "partitioned", "overlap"])
 def test_cli_refuses_unported_impls(capsys, impl):
     """An arm the port has under another name is answered with that name,
-    a mesh arm with ``--mesh``, an arm the port lacks with the roadmap,
-    and the dirichlet-only ``wave`` under periodic with JAX's reason."""
+    a mesh arm (``overlap``, ``partitioned``) with ``--mesh``, and the
+    dirichlet-only ``wave`` under periodic with JAX's reason."""
     rc = cli.main(["stencil", "--backend", "cpu", "--dim", "1", "--size",
                    "1024", "--iters", "2", "--impl", impl,
                    *REFUSED_EXTRA.get(impl, [])])
@@ -212,8 +212,8 @@ def test_block_arm_driver_dump_matches_jax_pallas_arm(tmp_path, dim, bc):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--halo-parts", "2"], ["--trace", "out.json"], ["--fuse-steps", "2"],
-    ["--halo-width", "2"], ["--halo-wire", "bfloat16"],
+    ["--xprof", "prof"], ["--trace", "out.json"], ["--status", "s.jsonl"],
+    ["--deadline", "2"], ["--max-retries", "2"],
     ["--dimsem", "parallel"], ["--backend", "cpu-sim"],
 ])
 def test_cli_refuses_flags_it_does_not_port(flag):

@@ -11,10 +11,12 @@ The port imports torch and numpy, never jax nor anything of ``tpu_comm``.
 Its entry points run on the CUDA card unless the caller asks for the CPU
 (``--backend cpu``).
 
-Ported so far: the single-device stencil driver (``bench/stencil.py``)
-and its three stream kernels (``kernels/jacobi{1,2,3}d.py``); the STREAM
-bandwidth driver (``bench/membw.py``) and its four kernels
-(``kernels/membw.py``).
+Ported so far: the stencil driver on one device and on a rank mesh
+(``bench/stencil.py``, every arm and shaping axis of the JAX driver's
+but ``--dimsem``) with every TPU kernel of ``tpu_comm``; the STREAM
+bandwidth driver (``bench/membw.py``); the collective sweep
+(``bench/sweep.py``); the halo microbench and the deep-halo crossover
+(``bench/halosweep.py``). ROADMAP.md queues the rest.
 """
 
 __version__ = "0.1.0"

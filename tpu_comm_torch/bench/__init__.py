@@ -34,6 +34,8 @@ name: it names no Pallas kernel):
                             device: dirichlet)
     pallas-multi   multi    csrc/multi.cu, t steps a pass (one device)
     multi          multi    width-t ghosts, t steps an exchange (mesh)
+    partitioned    partitioned  overlap, each face sent as sub-slabs
+                            (mesh)
     --pack fused  fused     slice copies of the faces
     --pack pallas kernel    csrc/pack.cu pack_faces_kernel (3D mesh)
 

@@ -23,6 +23,20 @@ the same initial field and takes its own block; rank 0 gathers the
 field, checks it and writes the one row, and its verdict is broadcast
 so that every rank fails together.
 
+A mesh run takes the JAX driver's shaping axes, with its checks and
+messages: ``halo_wire`` (the ghosts cross narrowed; ``--verify`` allows
+the wire's rounding, one unit roundoff of it a step), ``--impl
+partitioned`` with ``halo_parts`` (sub-slab transfers), ``halo_width``
+(the deep-halo window; ``--verify`` rounds its steps up to a window) and
+``fuse_steps`` (``run_distributed_fused``: the timed loop as chains of
+fuse_steps-step dispatches, each a CUDA graph replay on the card, the
+graphs kept for the rank's run and freed before its process group;
+``--verify`` runs the chain, its steps rounded up to it). The rows carry
+JAX's fields for them (``fuse_steps``, ``dispatches``,
+``secs_per_dispatch``, ``halo_parts``, ``halo_width`` with the window's
+pricing, ``wire_dtype``; ``halo_bytes_per_chip_per_iter`` at the wire's
+itemsize).
+
 Arm names are the port's own (``bench/__init__.py`` ``JAX_STENCIL_IMPLS``
 maps the JAX names); a JAX name is refused with the port's name for it.
 One device takes its arms from the family's module
@@ -61,9 +75,10 @@ from tpu_comm_torch.kernels.tiling import (
 #: default global points per dimension (the JAX driver's defaults)
 DEFAULT_SIZES = {1: 1 << 20, 2: 4096, 3: 256}
 #: the arms of a mesh run; ``auto`` resolves to ``overlap``
-DIST_IMPLS = ("torch", "overlap", "block", "stream", "multi", "wave")
-#: the JAX driver's other arm, refused until a later slice ports it
-UNPORTED_IMPLS = ("partitioned",)
+DIST_IMPLS = ("torch", "overlap", "partitioned", "block", "stream", "multi",
+              "wave")
+#: the unit roundoff of a narrow dtype (a field's or a halo wire's)
+EPS = {"bfloat16": 2.0 ** -9, "float16": 2.0 ** -11}
 #: the 3D arms that take no ``--chunk`` (the JAX driver's reason: they
 #: stream one plane a step); their rows carry no chunk, as JAX's
 UNCHUNKED_3D = ("wave", "multi")
@@ -100,6 +115,17 @@ class StencilConfig:
     mesh: tuple[int, ...] | None = None
     # ghost pack of a 3D mesh run: "fused" (slice copies) or "kernel"
     pack: str = "fused"
+    # mesh only: the ghosts cross in this narrower dtype ("bfloat16",
+    # "float16") and are widened on receipt; None = the field's dtype
+    halo_wire: str | None = None
+    # mesh only, --impl partitioned: sub-slabs a face (None: 2)
+    halo_parts: int | None = None
+    # mesh only, the star's torch/overlap arms: the deep-halo window, one
+    # chained width-K exchange a K exchange-free steps
+    halo_width: int | None = None
+    # mesh only: the timed loop as chains of fuse_steps-step dispatches,
+    # each a CUDA graph replay on the card; None = one step a call
+    fuse_steps: int | None = None
     # seconds a collective, a rendezvous or the spawned ranks may take
     dist_timeout: float = 600.0
     backend: str = "cuda"
@@ -143,8 +169,8 @@ def resolve_impl(impl: str, distributed: bool = False, dim: int = 1,
     ``auto`` is ``overlap`` on a mesh and ``stream`` on one device (JAX's
     ``auto`` on one device picks by a table of tuned A/B results, which
     the port does not have yet: ROADMAP queue A item 11). A JAX arm name,
-    an arm of the other mode, one the family lacks, one not yet ported or
-    an unknown name raises ValueError."""
+    an arm of the other mode, one the family lacks or an unknown name
+    raises ValueError."""
     if impl == "auto":
         return "overlap" if distributed else "stream"
     if impl in JAX_STENCIL_IMPLS:
@@ -159,11 +185,6 @@ def resolve_impl(impl: str, distributed: bool = False, dim: int = 1,
             raise ValueError(
                 f"--impl {impl} is an arm of one device: drop --mesh (a "
                 f"mesh has {', '.join(('auto',) + DIST_IMPLS)})"
-            )
-        if impl in UNPORTED_IMPLS:
-            raise ValueError(
-                f"--impl {impl} is not yet ported; see ROADMAP.md (ported: "
-                f"{', '.join(('auto',) + DIST_IMPLS)})"
             )
         raise ValueError(
             f"--impl must be one of {('auto',) + DIST_IMPLS}, got {impl!r}"
@@ -182,11 +203,6 @@ def resolve_impl(impl: str, distributed: bool = False, dim: int = 1,
         raise ValueError(
             f"--impl {impl} is an arm of a mesh run: pass --mesh (one "
             f"device has {', '.join(('auto',) + impls)})"
-        )
-    if impl in UNPORTED_IMPLS:
-        raise ValueError(
-            f"--impl {impl} is not yet ported; see ROADMAP.md (ported on "
-            f"one device: {', '.join(('auto',) + impls)})"
         )
     raise ValueError(
         f"--impl must be one of {('auto',) + impls}, got {impl!r}"
@@ -211,19 +227,27 @@ def stencil_bytes_per_iter(shape: tuple[int, ...], itemsize: int) -> int:
 
 
 def check_against_golden(
-    got: np.ndarray, want: np.ndarray, dtype: str, iters: int = 0
+    got: np.ndarray, want: np.ndarray, dtype: str, iters: int = 0,
+    halo_wire: str | None = None,
 ) -> None:
     """The JAX driver's verification envelope. float32: bitwise-grade
     (``1e-6`` or one f32 ulp per iteration of the field's scale). A
-    sub-fp32 field and its golden round at different points, so the error
-    is a relative unit roundoff accumulating at most once per iteration,
-    still far below a wrong-neighbour bug."""
-    eps = {"bfloat16": 2.0 ** -9, "float16": 2.0 ** -11}
+    sub-fp32 field and its golden round at different points, and so do
+    the ghosts of a narrow ``halo_wire`` (once an exchange), so the error
+    is a relative unit roundoff of that dtype accumulating at most once
+    per iteration (Jacobi averaging is a contraction), still far below a
+    wrong-neighbour bug."""
     scale = float(np.abs(want.astype(np.float64)).max()) or 1.0
+
+    def envelope(rounding_dtype: str) -> float:
+        return EPS.get(rounding_dtype, 1e-2) * max(iters, 1) * scale
+
     if dtype == "float32":
         atol = max(1e-6, 2.0 ** -23 * max(iters, 1) * scale)
     else:
-        atol = max(1e-2, eps.get(dtype, 1e-2) * max(iters, 1) * scale)
+        atol = max(1e-2, envelope(dtype))
+    if halo_wire is not None and halo_wire != dtype:
+        atol = max(atol, envelope(halo_wire))
     if not np.allclose(got, want, atol=atol):
         raise AssertionError(
             f"verification FAILED: max err "
@@ -288,6 +312,27 @@ def _validate(cfg: StencilConfig) -> StencilConfig:
             )
         if cfg.pack != "fused":
             raise ValueError("--pack applies to a 3D mesh run: pass --mesh")
+        if cfg.halo_wire is not None:
+            raise ValueError(
+                "--halo-wire applies to the distributed path only (pass "
+                "--mesh); a single device sends no halos"
+            )
+        if cfg.fuse_steps is not None:
+            raise ValueError(
+                "--fuse-steps applies to the distributed path only (pass "
+                "--mesh); the single-device loop is already one program"
+            )
+        if cfg.halo_parts is not None:
+            raise ValueError(
+                "--halo-parts applies to the distributed path only (pass "
+                "--mesh with --impl partitioned)"
+            )
+        if cfg.halo_width is not None:
+            raise ValueError(
+                "--halo-width applies to the distributed path only (pass "
+                "--mesh); a single device exchanges no ghost zone to "
+                "deepen (single-device temporal blocking is --impl multi)"
+            )
         if cfg.impl == "wave":
             check_wave_bc(cfg.bc)
         if cfg.impl not in CHUNK_DEFAULTS and cfg.chunk is not None:
@@ -475,7 +520,10 @@ def _validate_distributed(cfg: StencilConfig) -> StencilConfig:
     """Every check of a mesh run that needs no process group, so a bad
     configuration fails before a rank is started."""
     from tpu_comm_torch.domain import Decomposition
-    from tpu_comm_torch.kernels.distributed import make_local_step
+    from tpu_comm_torch.kernels.distributed import (
+        DEEP_HALO_IMPLS,
+        _step_and_trips,
+    )
     from tpu_comm_torch.topo import make_cart_mesh
 
     if cfg.chunk is not None:
@@ -483,7 +531,97 @@ def _validate_distributed(cfg: StencilConfig) -> StencilConfig:
             "--chunk is a single-device tuning knob; the distributed "
             "kernels choose their own chunking"
         )
+    if cfg.halo_wire is not None:
+        if (torch_dtype(cfg.halo_wire).itemsize
+                >= torch_dtype(cfg.dtype).itemsize):
+            raise ValueError(
+                f"--halo-wire {cfg.halo_wire} is not narrower than the "
+                f"field dtype {cfg.dtype}; drop the flag"
+            )
+        if cfg.tol is not None:
+            raise ValueError(
+                "--halo-wire with --tol is unsupported: convergence "
+                "verification asserts an exact iteration-count match "
+                "with the serial golden, which reduced-precision halos "
+                "can legitimately shift by a residual-check round"
+            )
     cfg = _validate(cfg)
+    if cfg.halo_parts is not None:
+        if cfg.impl != "partitioned":
+            raise ValueError(
+                "--halo-parts applies to --impl partitioned (the "
+                "sub-slab partitioned-communication exchange), not "
+                f"--impl {cfg.impl}"
+            )
+        if cfg.halo_parts < 1:
+            raise ValueError(
+                f"--halo-parts must be >= 1, got {cfg.halo_parts}"
+            )
+    if cfg.fuse_steps is not None:
+        if cfg.fuse_steps < 1:
+            raise ValueError(
+                f"--fuse-steps must be >= 1, got {cfg.fuse_steps}"
+            )
+        if cfg.tol is not None:
+            raise ValueError(
+                "--fuse-steps with --tol is unsupported: the "
+                "convergence loop owns its own on-device stepping"
+            )
+        if cfg.impl == "multi":
+            raise ValueError(
+                "--fuse-steps does not apply to --impl multi (t_steps "
+                "already amortizes the exchange there)"
+            )
+        if cfg.iters % cfg.fuse_steps != 0:
+            raise ValueError(
+                f"--iters ({cfg.iters}) must be a multiple of "
+                f"--fuse-steps ({cfg.fuse_steps})"
+            )
+    if cfg.halo_width is not None:
+        if cfg.halo_width < 1:
+            raise ValueError(
+                f"--halo-width must be >= 1, got {cfg.halo_width}"
+            )
+        if cfg.impl not in DEEP_HALO_IMPLS:
+            raise ValueError(
+                f"--halo-width applies to --impl "
+                f"{'|'.join(DEEP_HALO_IMPLS)} (the chained deep-halo "
+                f"window; partitioned and kernel arms keep their per-step "
+                f"exchange, --impl multi shapes its window with "
+                f"--t-steps), not --impl {cfg.impl}"
+            )
+        if cfg.points != 0:
+            raise ValueError(
+                f"--halo-width does not apply to --points {cfg.points} "
+                "(the box stencils keep the per-step transitive "
+                "exchange; the deep window is the star family's)"
+            )
+        if cfg.pack != "fused":
+            raise ValueError(
+                "--pack does not apply with --halo-width (the deep "
+                "window's chained pad_halo exchange IS the pack)"
+            )
+        if cfg.tol is not None:
+            raise ValueError(
+                "--halo-width with --tol is unsupported: the residual "
+                "check needs per-step granularity and the deep window "
+                "advances halo_width steps per exchange"
+            )
+        if cfg.iters % cfg.halo_width != 0:
+            raise ValueError(
+                f"--iters ({cfg.iters}) must be a multiple of "
+                f"--halo-width ({cfg.halo_width})"
+            )
+        if cfg.fuse_steps is not None and (
+            cfg.halo_width > cfg.fuse_steps
+            or cfg.fuse_steps % cfg.halo_width != 0
+        ):
+            raise ValueError(
+                f"--halo-width ({cfg.halo_width}) does not tile the "
+                f"--fuse-steps ({cfg.fuse_steps}) dispatch into whole "
+                f"exchange-free windows; pick halo-width <= fuse-steps "
+                f"with fuse-steps % halo-width == 0"
+            )
     mesh = tuple(int(m) for m in cfg.mesh)
     if len(mesh) != cfg.dim:
         raise ValueError(
@@ -495,16 +633,25 @@ def _validate_distributed(cfg: StencilConfig) -> StencilConfig:
     cart = make_cart_mesh(cfg.dim, shape=mesh, periodic=cfg.bc == "periodic",
                           world=math.prod(mesh), rank=0)
     Decomposition(cart, cfg.global_shape)  # divisibility
-    # arm x pack x stencil
-    make_local_step(cart, cfg.bc, cfg.impl, **_dist_kwargs(cfg))
+    # arm x pack x stencil x wire x parts x width
+    _step_and_trips(cart, cfg.bc, cfg.impl, _dist_kwargs(cfg),
+                    cfg.halo_width or 1)
     return dataclasses.replace(cfg, mesh=mesh)
 
 
 def _dist_kwargs(cfg: StencilConfig) -> dict:
-    """The distributed step's options of a mesh run."""
-    kwargs = {"pack": cfg.pack, "stencil": stencil_name(cfg.points)}
+    """The distributed step's options of a mesh run (those at their
+    default left out)."""
+    kwargs = {}
+    if cfg.pack != "fused":
+        kwargs["pack"] = cfg.pack
+    if cfg.points:
+        kwargs["stencil"] = stencil_name(cfg.points)
     if cfg.impl == "multi":
         kwargs["t_steps"] = cfg.t_steps
+    for name in ("halo_wire", "halo_parts", "halo_width"):
+        if getattr(cfg, name) is not None:
+            kwargs[name] = getattr(cfg, name)
     return kwargs
 
 
@@ -533,11 +680,13 @@ def run_rank(cfg: StencilConfig) -> dict | None:
     """One rank's share of a mesh run, inside the default process group
     (world size = the mesh's): returns the row on rank 0, None elsewhere.
     ``cfg`` has passed :func:`_validate_distributed`."""
-    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.comm import launch, patterns
     from tpu_comm_torch.comm.halo import halo_bytes_per_iter
     from tpu_comm_torch.domain import Decomposition
     from tpu_comm_torch.kernels.distributed import (
+        release_graphs,
         run_distributed,
+        run_distributed_fused,
         run_distributed_to_convergence,
     )
     from tpu_comm_torch.topo import get_device, make_cart_mesh
@@ -558,12 +707,23 @@ def run_rank(cfg: StencilConfig) -> dict | None:
     kwargs = _dist_kwargs(cfg)
     multi = cfg.impl == "multi"
     traffic = stencil_bytes_per_iter(dec.local_shape, u_dev.element_size())
-    # the width-1 model for every arm, multi too (as the JAX driver's
-    # rows): a width-t exchange every t steps sends the same bytes per
-    # iteration in t-fold fewer messages
-    halo_traffic = halo_bytes_per_iter(
-        dec.local_shape, cart, u_dev.element_size()
-    )
+    # what crosses the wire: the wire dtype's bytes. The width-1 model
+    # for every arm, multi too (as the JAX driver's rows): a width-t
+    # exchange every t steps sends the same bytes per iteration in t-fold
+    # fewer messages; a deep-halo row rates against the chained window
+    # it sends (later axes' slabs carry the earlier axes' ghosts)
+    wire_itemsize = (torch_dtype(cfg.halo_wire).itemsize if cfg.halo_wire
+                     else u_dev.element_size())
+    deep = None
+    if cfg.halo_width is not None:
+        deep = patterns.deep_halo_model(
+            tuple(dec.local_shape), tuple(cart.shape), wire_itemsize,
+            cfg.halo_width,
+        )
+        halo_traffic = deep["halo_bytes_per_chip_per_iter"]
+    else:
+        halo_traffic = halo_bytes_per_iter(dec.local_shape, cart,
+                                           wire_itemsize)
     base = {
         "backend": cfg.backend,
         "platform": device.type,
@@ -571,6 +731,30 @@ def run_rank(cfg: StencilConfig) -> dict | None:
         "topo_plan": cart.plan_id,
         "impl": cfg.impl,
         **({"t_steps": cfg.t_steps} if multi else {}),
+        **(
+            {
+                "fuse_steps": cfg.fuse_steps,
+                # dispatches a timed run at --iters (the seed copy is no
+                # step dispatch)
+                "dispatches": cfg.iters // cfg.fuse_steps,
+            }
+            if cfg.fuse_steps is not None else {}
+        ),
+        **({"halo_parts": cfg.halo_parts}
+           if cfg.halo_parts is not None else {}),
+        **(
+            {
+                "halo_width": cfg.halo_width,
+                "window_wire_bytes_per_chip":
+                    deep["window_wire_bytes_per_chip"],
+                "msgs_per_chip_per_iter": deep["msgs_per_chip_per_iter"],
+                "redundant_compute_frac": round(
+                    deep["redundant_compute_frac"], 6
+                ),
+            }
+            if deep is not None else {}
+        ),
+        **({"wire_dtype": cfg.halo_wire} if cfg.halo_wire else {}),
         "pack": cfg.pack,
         "bc": cfg.bc,
         "dtype": cfg.dtype,
@@ -618,34 +802,58 @@ def run_rank(cfg: StencilConfig) -> dict | None:
             )
         return finish(record, u_fin)
 
-    def run_iters(k: int):
-        return run_distributed(
-            u_dev, dec, k, bc=cfg.bc, impl=cfg.impl, **kwargs
-        )
+    # the chains a fused run captures on the card, one a fuse_steps
+    # value, freed before the process group is
+    graphs = {}
+    if cfg.fuse_steps is not None:
+        def run_iters(k: int):
+            u, _ = run_distributed_fused(
+                u_dev, dec, k, cfg.fuse_steps, bc=cfg.bc, impl=cfg.impl,
+                graphs=graphs, **kwargs,
+            )
+            return u
+    else:
+        def run_iters(k: int):
+            return run_distributed(
+                u_dev, dec, k, bc=cfg.bc, impl=cfg.impl, **kwargs
+            )
 
-    if cfg.verify:
-        v_iters = (_round_up(cfg.verify_iters, cfg.t_steps) if multi
-                   else cfg.verify_iters)
-        got = dec.gather(sync(run_iters(v_iters)))
-        _collective_verdict(
-            lambda: check_against_golden(
-                got, reference.GOLDEN_RUNS[cfg.points](u0, v_iters,
-                                                       bc=cfg.bc),
-                cfg.dtype, iters=v_iters,
-            ),
-            device,
-        )
-    with maybe_profile(cfg.profile, device):
-        per_iter, t_lo, _ = time_loop_per_iter(
-            run_iters, cfg.iters, warmup=cfg.warmup, reps=cfg.reps,
-            barrier=barrier,
-        )
+    try:
+        if cfg.verify:
+            v_iters = (_round_up(cfg.verify_iters, cfg.t_steps) if multi
+                       else cfg.verify_iters)
+            if cfg.halo_width is not None and cfg.fuse_steps is None:
+                # an unfused deep-halo run advances in halo_width windows
+                v_iters = _round_up(v_iters, cfg.halo_width)
+            if cfg.fuse_steps is not None:
+                # verify the chain the timed loop dispatches (a fuse_steps
+                # multiple is a halo_width multiple too)
+                v_iters = _round_up(v_iters, cfg.fuse_steps)
+            got = dec.gather(sync(run_iters(v_iters)))
+            _collective_verdict(
+                lambda: check_against_golden(
+                    got, reference.GOLDEN_RUNS[cfg.points](u0, v_iters,
+                                                           bc=cfg.bc),
+                    cfg.dtype, iters=v_iters, halo_wire=cfg.halo_wire,
+                ),
+                device,
+            )
+        with maybe_profile(cfg.profile, device):
+            per_iter, t_lo, _ = time_loop_per_iter(
+                run_iters, cfg.iters, warmup=cfg.warmup, reps=cfg.reps,
+                barrier=barrier,
+            )
+        field = run_iters(cfg.iters) if cfg.dump else None
+    finally:
+        release_graphs(graphs)
     record = {
         "workload": f"{_stencil_tag(cfg)}-dist",
         **base,
+        **({"secs_per_dispatch": per_iter * cfg.fuse_steps}
+           if cfg.fuse_steps is not None else {}),
         **_slope_fields(cfg, per_iter, t_lo, traffic, halo_traffic),
     }
-    return finish(record, run_iters(cfg.iters) if cfg.dump else None)
+    return finish(record, field)
 
 
 def run_distributed_bench(cfg: StencilConfig) -> dict | None:

@@ -108,6 +108,29 @@ def run_steps_to_convergence(
     return (src if n else u0.clone()), it, res
 
 
+def launch_wrappers() -> list:
+    """Every kernel wrapper of the port: each function of the kernel
+    modules with a ``launches`` count (one added where it launches its
+    kernel)."""
+    from tpu_comm_torch.kernels import (
+        jacobi1d,
+        jacobi2d,
+        jacobi3d,
+        membw,
+        pack,
+        stencil9,
+        stencil27,
+    )
+
+    found = {}
+    for mod in (jacobi1d, jacobi2d, jacobi3d, stencil9, stencil27, pack,
+                membw):
+        for obj in vars(mod).values():
+            if callable(obj) and hasattr(obj, "launches"):
+                found[id(obj)] = obj
+    return list(found.values())
+
+
 def kernels_for(dim: int, points: int = 0):
     """Kernel module of a stencil (step_plain / step_stream / step_block /
     run, and where the family has temporal blocking step_multi_plain /

@@ -15,6 +15,13 @@ Local-update arms (``IMPLS``; the JAX names in brackets):
 - ``overlap`` [overlap] — the interior/boundary split: post the
   exchange, update the interior from the raw block while it is in
   flight, wait, recompute every face cell from the ghosts.
+- ``partitioned`` [partitioned] — ``overlap`` fed by the partitioned
+  exchange (``halo.start_exchange_ghosts_partitioned``, ``halo_parts``
+  sub-slabs a face, each its own transfer). Its values equal
+  ``overlap``'s bitwise. JAX also writes each face once a sub-slab, to
+  give XLA's scheduler finer handles inside a fused graph; an eager step
+  gains nothing from that, so the port recomputes each face whole
+  (:func:`faces_from_ghosts`), the same values.
 - ``block`` [pallas] — the same split with the whole-field kernel
   (``step_block``, ``csrc/jacobi_block.cu``) as the update: it runs the
   block-periodic step on the raw block, then the faces are recomputed.
@@ -53,6 +60,14 @@ neighbour pairs, summed in axis order, times ``1/(2d)`` in the field's
 dtype, so float32 stays bitwise. The steps write in place into their
 output buffer.
 
+``halo_wire`` sends every arm's ghosts narrowed (``halo``'s
+``wire_dtype``); ``halo_width=K`` (``torch``/``overlap``, the star) runs
+the deep-halo window instead of the arm's step
+(:func:`make_deep_halo_window`): one chained width-K exchange, then K
+exchange-free steps. :func:`run_distributed_fused` runs a chain of
+``fuse_steps``-step dispatches; on the card each is a replay of one CUDA
+graph, captured once, exchange included.
+
 ``stencil="9pt"`` (2D mesh) and ``"27pt"`` (3D mesh) are the box
 stencils, which read the corner and (3D) edge neighbours. Their ghosts
 come from the chained exchange (``halo.start_exchange_transitive``: each
@@ -72,7 +87,7 @@ import torch.distributed as dist
 from tpu_comm_torch.bench import JAX_STENCIL_IMPLS
 from tpu_comm_torch.comm import halo
 from tpu_comm_torch.domain import Decomposition
-from tpu_comm_torch.kernels import BOX, kernels_for
+from tpu_comm_torch.kernels import BOX, kernels_for, launch_wrappers
 from tpu_comm_torch.kernels.pack import PACK_IMPLS
 from tpu_comm_torch.kernels.padded import (  # noqa: F401
     FROM_PADDED,
@@ -86,9 +101,15 @@ from tpu_comm_torch.kernels.tiling import check_t_steps
 from tpu_comm_torch.topo import CartMesh
 
 #: the port's local-update arms
-IMPLS = ("torch", "overlap", "block", "stream", "multi", "wave")
-#: options of the JAX ``make_local_step`` that wait for a later slice
-UNPORTED_OPTIONS = ("halo_wire", "halo_parts", "halo_width", "fuse_steps")
+IMPLS = ("torch", "overlap", "partitioned", "block", "stream", "multi",
+         "wave")
+#: the arms of the box stencils (JAX has no partitioned box step)
+BOX_IMPLS = tuple(i for i in IMPLS if i != "partitioned")
+#: the arms the deep-halo window composes with (JAX's ``lax`` and
+#: ``overlap``): the window's chained width-k exchange and shrinking
+#: update REPLACE the arm's own step, so the window is the same under
+#: both names, and at k = 1 it equals the ``torch`` arm bitwise
+DEEP_HALO_IMPLS = ("torch", "overlap")
 
 
 def ring_planes(cart: CartMesh, shape, t: int = 0):
@@ -221,7 +242,8 @@ def _interior_update(block: torch.Tensor, out: torch.Tensor | None,
     return new
 
 
-def multi_local_step(cart: CartMesh, bc: str, t: int, from_padded):
+def multi_local_step(cart: CartMesh, bc: str, t: int, from_padded,
+                     wire=None):
     """The ``multi`` step: ``local_step(block, out=None)`` advances the
     block ``t`` iterations behind ONE exchange of width-``t`` ghosts
     (JAX's ``_multi_local_step``, for the star and the box stencils).
@@ -245,7 +267,7 @@ def multi_local_step(cart: CartMesh, bc: str, t: int, from_padded):
                 f"local block {tuple(block.shape)} smaller than halo width "
                 f"t_steps={t}; use fewer devices or smaller t_steps"
             )
-        p = halo.pad_halo(block, cart, width=t)
+        p = halo.pad_halo(block, cart, width=t, wire_dtype=wire)
         planes = ring_planes(cart, p.shape, t) if bc == "dirichlet" else []
         # the ring's first values, kept before p is written over
         frozen = [(a, i, p.narrow(a, i, 1).clone()) for a, i in planes]
@@ -266,7 +288,7 @@ def multi_local_step(cart: CartMesh, bc: str, t: int, from_padded):
 
 
 def wave_ghost_local_step(cart: CartMesh, bc: str,
-                          rows_per_chunk: int | None = None):
+                          rows_per_chunk: int | None = None, wire=None):
     """The 1D and 2D star's ``wave`` step: exchange every axis' ghosts,
     wait, then one launch of the ghost-fed wave kernel
     (``jacobi1d``/``jacobi2d.step_wave_ghost``) computes every cell of the
@@ -277,7 +299,8 @@ def wave_ghost_local_step(cart: CartMesh, bc: str,
     family = kernels_for(len(cart.axis_names))
 
     def local_step(block, out=None):
-        ghosts = halo.start_exchange_ghosts(block, cart).wait()
+        ghosts = halo.start_exchange_ghosts(block, cart,
+                                            wire_dtype=wire).wait()
         lines = [g for _, lo, hi in ghosts for g in (lo, hi)]
         new = family.step_wave_ghost(block, *lines,
                                      rows_per_chunk=rows_per_chunk, out=out)
@@ -288,12 +311,7 @@ def wave_ghost_local_step(cart: CartMesh, bc: str,
     return local_step
 
 
-def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
-                    pack: str = "fused", **kwargs):
-    """Build the per-iteration function ``local_step(block, out=None)``
-    of this rank: one halo exchange plus one update of its block,
-    returning the new block (``out`` when the arm writes in place). All
-    ranks of the mesh call it together."""
+def _check_mesh_bc(cart: CartMesh, bc: str) -> None:
     check_bc(bc)
     if bc == "periodic":
         for name in cart.axis_names:
@@ -302,6 +320,20 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
                     f"bc=periodic needs a periodic mesh axis {name!r} "
                     f"(construct the CartMesh with periodic=True)"
                 )
+
+
+def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
+                    pack: str = "fused", **kwargs):
+    """Build the per-iteration function ``local_step(block, out=None)``
+    of this rank: one halo exchange plus one update of its block,
+    returning the new block (``out`` when the arm writes in place). All
+    ranks of the mesh call it together.
+
+    ``halo_wire="bfloat16"|"float16"`` sends the ghosts narrowed and
+    widens them on receipt (``halo``'s ``wire_dtype``), for every arm and
+    pack; the update stays in the field's dtype. ``halo_parts=K`` is the
+    ``partitioned`` arm's sub-slabs a face (default 2)."""
+    _check_mesh_bc(cart, bc)
     if impl in JAX_STENCIL_IMPLS:
         raise ValueError(
             f"impl {impl!r} is the JAX package's name; the port calls "
@@ -317,6 +349,7 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
                 "pack='kernel' needs a 3D mesh and "
                 "impl=overlap|block|stream"
             )
+    wire = halo.wire_dtype_of(kwargs.pop("halo_wire", None))
     stencil = kwargs.pop("stencil", "star")
     if stencil not in FROM_PADDED:
         raise ValueError(f"unknown stencil {stencil!r} (star|9pt|27pt)")
@@ -330,10 +363,10 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
             raise ValueError(
                 f"stencil={stencil!r} needs a {want_nd}D mesh, got {nd}D"
             )
-        if impl not in IMPLS:
+        if impl not in BOX_IMPLS:
             raise ValueError(
                 f"stencil={stencil!r} supports impl="
-                f"{'|'.join(repr(i) for i in IMPLS)}, got {impl!r}"
+                f"{'|'.join(repr(i) for i in BOX_IMPLS)}, got {impl!r}"
             )
         if pack != "fused":
             # the box path's ghosts come from the chained exchange, never
@@ -344,10 +377,14 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
                 f"(stencil={stencil!r} exchanges via the transitive "
                 "pad_halo chain)"
             )
-    for name in UNPORTED_OPTIONS:
-        if kwargs.pop(name, None) is not None:
-            raise ValueError(f"{name} is not yet ported; see ROADMAP.md")
     t = kwargs.pop("t_steps", 8) if impl == "multi" else None
+    parts = None
+    if impl == "partitioned":
+        parts = kwargs.pop("halo_parts", 2)
+        if not isinstance(parts, int) or parts < 1:
+            raise ValueError(
+                f"halo_parts must be a positive int, got {parts!r}"
+            )
     rows = None
     if impl == "wave" and stencil not in BOX:
         rows = kwargs.pop("rows_per_chunk", None)
@@ -363,15 +400,15 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
     from_padded = FROM_PADDED[stencil]
 
     if impl == "multi":
-        return multi_local_step(cart, bc, t, from_padded)
+        return multi_local_step(cart, bc, t, from_padded, wire)
 
     if impl == "wave" and nd < 3 and stencil not in BOX:
-        return wave_ghost_local_step(cart, bc, rows)
+        return wave_ghost_local_step(cart, bc, rows, wire)
 
     if impl == "torch":
 
         def local_step(block, out=None):
-            new = from_padded(halo.pad_halo(block, cart))
+            new = from_padded(halo.pad_halo(block, cart, wire_dtype=wire))
             if bc == "dirichlet":
                 dirichlet_freeze(new, block, cart)
             return new
@@ -380,7 +417,8 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
 
     if stencil in BOX:
         def start_exchange(block):
-            return halo.start_exchange_transitive(block, cart)
+            return halo.start_exchange_transitive(block, cart,
+                                                  wire_dtype=wire)
 
         def faces(new, block, ghosts):
             box_faces_from_ghosts(new, block, ghosts, cart, bc, from_padded)
@@ -388,15 +426,20 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
         if pack == "kernel":
             def start_exchange(block):
                 return halo.start_exchange_ghosts_3d_packed(
-                    block, cart, "kernel")
+                    block, cart, "kernel", wire_dtype=wire)
+        elif impl == "partitioned":
+            def start_exchange(block):
+                return halo.start_exchange_ghosts_partitioned(
+                    block, cart, parts, wire_dtype=wire)
         else:
             def start_exchange(block):
-                return halo.start_exchange_ghosts(block, cart)
+                return halo.start_exchange_ghosts(block, cart,
+                                                  wire_dtype=wire)
 
         def faces(new, block, ghosts):
             faces_from_ghosts(new, block, ghosts, cart, bc)
 
-    if impl == "overlap":
+    if impl in ("overlap", "partitioned"):
         def update(block, out):
             return _interior_update(block, out, from_padded)
     elif impl in ("block", "stream"):
@@ -418,8 +461,6 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
         else:
             def update(block, out):
                 return family.step_multi(block, "dirichlet", 1, out=out)
-    elif impl == "partitioned":
-        raise ValueError(f"impl {impl!r} is not yet ported; see ROADMAP.md")
     else:
         raise ValueError(f"unknown distributed impl {impl!r}")
 
@@ -438,12 +479,99 @@ def make_local_step(cart: CartMesh, bc: str, impl: str = "torch",
     return local_step
 
 
+def make_deep_halo_window(cart: CartMesh, bc: str, halo_width: int,
+                          wire=None):
+    """The communication-avoiding k-step window (JAX's
+    ``make_deep_halo_window``): ``window(block, out=None)`` exchanges
+    width-``halo_width`` ghosts ONCE (``halo.pad_halo``'s chain fills
+    every corner and edge region the k-step cone reads), then runs
+    ``halo_width`` exchange-free steps of :func:`stencil_from_padded`,
+    each shrinking the array by one cell a side, so that after k steps
+    the block's shape is left. Every cell outside the block is redundant
+    ghost recompute (``patterns.deep_halo_redundant_cells``). Under
+    dirichlet the global ring plane, ``halo_width - j`` cells in after
+    step j, is restored every step from the first padded field, face
+    copy by face copy (:func:`ring_planes`, as :func:`dirichlet_freeze`;
+    no mask is built, so the window can be captured in a CUDA graph):
+    the barrier that also stops the open edge's junk. Float32 equals the
+    per-step ``torch`` arm bitwise: the same expression on the same
+    inputs."""
+    _check_mesh_bc(cart, bc)
+    if halo_width < 1:
+        raise ValueError(f"halo_width must be >= 1, got {halo_width}")
+    wire = halo.wire_dtype_of(wire)
+
+    def window(block, out=None):
+        p0 = halo.pad_halo(block, cart, width=halo_width, wire_dtype=wire)
+        p = p0
+        for j in range(1, halo_width + 1):
+            # the last step has the block's shape: straight into out
+            p = stencil_from_padded(p, out=out if j == halo_width else None)
+            if bc == "dirichlet":
+                # the ring planes of the shrunken array, from the first
+                # padded field trimmed to its shape
+                first = p0
+                for a in range(p.dim()):
+                    first = first.narrow(a, j, p.shape[a])
+                for a, i in ring_planes(cart, p.shape, halo_width - j):
+                    p.narrow(a, i, 1).copy_(first.narrow(a, i, 1))
+        return p
+
+    return window
+
+
+def _step_and_trips(cart: CartMesh, bc: str, impl: str, opts: dict,
+                    steps: int):
+    """The step body of both runners: the arm's ``local_step`` looped
+    ``steps`` times, or with ``halo_width`` in ``opts`` the deep-halo
+    window looped ``steps / halo_width`` times (one chained exchange a
+    window). Returns ``(step_fn, trips)``; every check is here, with
+    JAX's messages."""
+    hw = opts.pop("halo_width", None)
+    if hw is None:
+        return make_local_step(cart, bc, impl, **opts), steps
+    if not isinstance(hw, int) or hw < 1:
+        raise ValueError(f"halo_width must be a positive int, got {hw!r}")
+    if impl not in DEEP_HALO_IMPLS:
+        raise ValueError(
+            f"halo_width applies to impl="
+            f"{'/'.join(repr(i) for i in DEEP_HALO_IMPLS)} (the chained "
+            f"deep-halo exchange; partitioned/kernel arms keep their "
+            f"per-step exchange structure, impl='multi' has t_steps), "
+            f"got {impl!r}"
+        )
+    if steps % hw != 0:
+        raise ValueError(
+            f"steps={steps} must be a multiple of halo_width={hw} "
+            f"(each window advances halo_width exchange-free steps)"
+        )
+    wire = opts.pop("halo_wire", None)
+    if opts:
+        raise ValueError(
+            f"unknown kwargs for the deep-halo window: {sorted(opts)}"
+        )
+    return make_deep_halo_window(cart, bc, hw, wire=wire), steps // hw
+
+
 def _check_block(block: torch.Tensor, dec: Decomposition) -> None:
     if tuple(block.shape) != dec.local_shape:
         raise ValueError(
             f"block shape {tuple(block.shape)} != local shape "
             f"{dec.local_shape}"
         )
+
+
+def _chain(step, x: torch.Tensor, y: torch.Tensor, trips: int
+           ) -> torch.Tensor:
+    """``trips`` calls of ``step`` from ``x``, ping-pong between ``y`` and
+    ``x``, the result left in ``x`` (one copy when ``trips`` is odd or the
+    step returns a buffer of its own)."""
+    src = x
+    for i in range(trips):
+        src = step(src, out=(y, x)[i % 2])
+    if src is not x:
+        x.copy_(src)
+    return x
 
 
 def run_distributed(block: torch.Tensor, dec: Decomposition, iters: int,
@@ -453,11 +581,19 @@ def run_distributed(block: torch.Tensor, dec: Decomposition, iters: int,
     decomposed field; returns the rank's new block. Ping-pong over two
     buffers allocated once per call; ``block`` itself is only read.
     ``impl="multi"`` advances ``t_steps`` iterations a step, so ``iters``
-    must be a multiple of it."""
+    must be a multiple of it; ``halo_width=K`` (``torch``/``overlap``)
+    runs ``iters / K`` deep-halo windows, so ``iters`` must be a multiple
+    of K."""
     _check_block(block, dec)
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
     if impl == "multi":
+        if kwargs.get("halo_width") is not None:
+            raise ValueError(
+                "halo_width and impl='multi' are both "
+                "communication-avoiding steppers; impl='multi' shapes "
+                "its window with t_steps — pick one"
+            )
         t = kwargs.get("t_steps", 8)
         check_t_steps(t)
         if iters % t != 0:
@@ -466,14 +602,162 @@ def run_distributed(block: torch.Tensor, dec: Decomposition, iters: int,
                 f"impl='multi'"
             )
         iters //= t
-    step = make_local_step(dec.cart, bc, impl, **kwargs)
-    if iters == 0:
+    step, trips = _step_and_trips(dec.cart, bc, impl, dict(kwargs), iters)
+    if trips == 0:
         return block.clone()
     bufs = (torch.empty_like(block), torch.empty_like(block))
     src = block
-    for i in range(iters):
+    for i in range(trips):
         src = step(src, out=bufs[i % 2])
     return src
+
+
+class GraphChain:
+    """One ``fuse_steps`` chain of a run on the card, captured once in a
+    ``torch.cuda.CUDAGraph`` and replayed a dispatch.
+
+    The graph holds the whole chain, the exchanges included, over two
+    static buffers: it reads the field from ``x`` and leaves the result
+    in ``x`` (``y`` is the ping-pong partner). The first dispatch runs
+    the chain eagerly on a side stream: that is the warm-up capture
+    needs (NCCL creates its communicator and channels at the first
+    transfer, the kernels' libraries load), and its result is the first
+    dispatch's. The card is then synchronised and the chain captured;
+    capture records and runs nothing, so every later dispatch is a
+    replay. A capture that fails raises: there is no eager fallback.
+
+    Launch counts: a wrapper counts its kernel once while it is captured,
+    though nothing ran. The capture's counts are taken back and kept in
+    ``captured`` (wrapper -> launches a replay makes), and every replay
+    adds them, so the counters read what the card ran. ``replays``
+    counts the replays.
+    """
+
+    def __init__(self, step, trips: int, block: torch.Tensor):
+        self.step, self.trips = step, trips
+        self.x = torch.empty_like(block)
+        self.y = torch.empty_like(block)
+        self.graph = None
+        self.captured: dict = {}
+        self.replays = 0
+
+    def release(self) -> None:
+        """Free the graph; it holds the communicator it captured, so a
+        caller releases it before the process group is destroyed (a
+        group torn down under a live graph has hung at exit)."""
+        if self.graph is not None:
+            torch.cuda.synchronize()
+            self.graph.reset()
+            self.graph = None
+
+    def dispatch(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+            for wrapper, n in self.captured.items():
+                wrapper.launches += n
+            self.replays += 1
+            return
+        current = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            _chain(self.step, self.x, self.y, self.trips)
+        current.wait_stream(side)
+        torch.cuda.synchronize()
+        wrappers = launch_wrappers()
+        before = [w.launches for w in wrappers]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _chain(self.step, self.x, self.y, self.trips)
+        for w, b in zip(wrappers, before):
+            if w.launches != b:
+                self.captured[w] = w.launches - b
+                w.launches = b
+        self.graph = graph
+
+
+def run_distributed_fused(
+    block: torch.Tensor, dec: Decomposition, iters: int, fuse_steps: int,
+    bc: str = "dirichlet", impl: str = "torch", graphs: dict | None = None,
+    **kwargs,
+) -> tuple[torch.Tensor, int]:
+    """Advance ``iters`` distributed steps as a chain of ``iters /
+    fuse_steps`` dispatches of ``fuse_steps`` steps each (JAX's
+    ``run_distributed_fused``, with its checks and messages); returns
+    ``(block, n_dispatches)``. ``fuse_steps=1`` is the per-step-dispatch
+    baseline, ``fuse_steps=iters`` one dispatch. ``halo_width=K``
+    composes: a dispatch runs ``fuse_steps / K`` windows.
+
+    On the card a dispatch is one replay of a CUDA graph of the chain
+    (:class:`GraphChain`), captured once per chain: ``graphs``, a dict
+    the caller keeps for the life of its process group, holds the
+    captured chains across calls (None: capture anew each call, and free
+    the graph on return). A graph holds the communicator it captured:
+    the caller frees its chains (:meth:`GraphChain.release`) before the
+    group is destroyed. On the CPU a dispatch is ``fuse_steps`` eager
+    steps into the same two buffers; the result is the same.
+
+    ``block`` is never written: it is copied once into the chain's
+    buffer (the seed copy), and the result is copied out of it once (a
+    graph's buffer is overwritten by the next call).
+    """
+    _check_block(block, dec)
+    if fuse_steps < 1:
+        raise ValueError(f"fuse_steps must be >= 1, got {fuse_steps}")
+    if impl == "multi":
+        raise ValueError(
+            "impl='multi' already amortizes the exchange via t_steps; "
+            "fuse_steps applies to the per-step impls "
+            "(torch/overlap/partitioned/block/stream/wave)"
+        )
+    if iters % fuse_steps != 0:
+        raise ValueError(
+            f"iters={iters} must be a multiple of fuse_steps={fuse_steps}"
+        )
+    hw = kwargs.get("halo_width")
+    if hw is not None:
+        if not isinstance(hw, int) or hw < 1:
+            raise ValueError(
+                f"halo_width must be a positive int, got {hw!r}"
+            )
+        if hw > fuse_steps or fuse_steps % hw != 0:
+            raise ValueError(
+                f"halo_width={hw} does not tile the fuse_steps="
+                f"{fuse_steps} dispatch into whole exchange-free "
+                f"windows; pick halo_width <= fuse_steps with "
+                f"fuse_steps % halo_width == 0"
+            )
+    n = iters // fuse_steps
+    if block.device.type != "cuda":
+        step, trips = _step_and_trips(dec.cart, bc, impl, dict(kwargs),
+                                      fuse_steps)
+        x, y = block.clone(), torch.empty_like(block)
+        for _ in range(n):
+            _chain(step, x, y, trips)
+        return x, n
+    key = (dec.cart, dec.global_shape, block.dtype, block.device,
+           fuse_steps, bc, impl, tuple(sorted(kwargs.items())))
+    chain = None if graphs is None else graphs.get(key)
+    if chain is None:
+        step, trips = _step_and_trips(dec.cart, bc, impl, dict(kwargs),
+                                      fuse_steps)
+        chain = GraphChain(step, trips, block)
+        if graphs is not None:
+            graphs[key] = chain
+    chain.x.copy_(block)
+    for _ in range(n):
+        chain.dispatch()
+    out = chain.x.clone()
+    if graphs is None:
+        chain.release()
+    return out, n
+
+
+def release_graphs(graphs: dict) -> None:
+    """Free every chain of a :func:`run_distributed_fused` cache."""
+    for chain in graphs.values():
+        chain.release()
+    graphs.clear()
 
 
 def run_distributed_to_convergence(
@@ -490,6 +774,17 @@ def run_distributed_to_convergence(
     _check_block(block, dec)
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
+    if impl == "multi":
+        raise ValueError(
+            "convergence mode needs per-step residual granularity; use "
+            "impl='torch'/'overlap' (not the fused 'multi' stepping)"
+        )
+    if kwargs.get("halo_width") is not None:
+        raise ValueError(
+            "convergence mode needs per-step residual granularity; "
+            "drop halo_width (the deep-halo window advances "
+            "halo_width steps per exchange)"
+        )
     step = make_local_step(dec.cart, bc, impl, **kwargs)
     bufs = (torch.empty_like(block), torch.empty_like(block))
     src = block
