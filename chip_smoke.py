@@ -53,7 +53,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    1D (a ``torch`` run launches no kernel), ``membw --op OP --impl
    ARM`` for every (op, arm) pair the JAX CLI accepts, and the mesh runs
    ``stencil --mesh 1[,1[,1]]`` (world size 1, the NCCL group created; a
-   periodic axis exchanges with its own rank through NCCL) for the block
+   periodic axis exchanges with its own rank through NCCL; every run's
+   loops replayed from CUDA graphs, its row saying ``dispatch: graph``
+   and the steps a graph holds) for the block
    arm in 1D, 2D and 3D and the stream, overlap and auto arms in 3D, the
    3D ones with ``--pack kernel``, and for the box stencils (the chained
    exchange, one NCCL batch per axis) the block, stream and overlap arms
@@ -92,14 +94,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``halosweep --widths 1,2,4,8`` (its summary line printed); and the
    graph card check: a 20-step chain of the 3D block and stream steps
    replayed from its CUDA graph, bitwise equal to the eager chain, its
-   launches a replay those of the capture and of the eager chain;
+   launches a replay those of the capture and of the eager chain; the
+   ``--tol`` runs' convergence loop (a graph a round, the residual's
+   ``all_reduce`` inside) held to the eager loop at full size: the same
+   rounds as the CLI row's, residual and field bitwise; the ``overlap``
+   subcommand on a periodic 512^3 mesh of one (``--impl overlap``,
+   ``partitioned --halo-parts 4``, and the fused audits ``--fuse-steps
+   20`` with and without ``--halo-width 4``: P2P ops a step, NCCL
+   kernels, a verdict, one graph launch a dispatch holding the
+   exchanges); and ``pack --impl both`` at JAX's default block and at
+   512^3, verified, timed as graph replays, its kernel arm's launches
+   counted;
 5. times at the full float32 sizes (CUDA events): kernel, plain version,
    one library call computing the same function (a yardstick the port
    never calls), and for each stencil a device-to-device ``copy_`` and the
-   port's own chunked copy kernel at the same bytes; and per mesh arm of
-   the 3D star and of both box stencils the whole distributed step
-   (exchange, kernel, face recompute, freeze) beside its kernel alone and
-   its exchange alone; for the multi kernels the time per pass of t = 8,
+   port's own chunked copy kernel at the same bytes; and per mesh arm
+   (every arm, the star in 1D-3D and both box stencils, with
+   ``partitioned``, ``--halo-width`` and ``--halo-wire``) the whole
+   distributed step (exchange, kernel, face recompute, freeze) eager,
+   one call a step, beside the same step replayed from a CUDA graph of
+   20 steps, in turns, the graph's chain bitwise equal to the eager
+   one, and beside them its kernel alone and its exchange alone; for the
+   multi kernels the time per pass of t = 8,
    its bound, and a circular convolution with the t-fold stencil as the
    library call (t = 4 for the 3D wavefront, also timed at t = 1, 2,
    8), the pass timed in turns beside the block kernel called t times
@@ -352,6 +368,22 @@ HALOSWEEP_ARGV = ["halosweep", "--dim", "2", "--size", str(SIZES[2]),
 #: one): --impl -> --pack
 GRAPH_STEPS = 20
 GRAPH_ARMS = {"block": "kernel", "stream": "fused"}
+#: the overlap runs of phase 4 (3D, periodic, 512^3, a mesh of one):
+#: (name, more argv, P2P ops a step, the report's scheduled_overlap:
+#: True for the split arms, None for the torch arm, the control, whose
+#: reading is reported and not held)
+OVERLAP_RUNS = [
+    ("overlap", ["--impl", "overlap"], 6, True),
+    ("partitioned", ["--impl", "partitioned", "--halo-parts", "4"], 24,
+     True),
+    ("torch", ["--impl", "torch"], 6, None),
+    ("fused", ["--impl", "overlap", "--fuse-steps", str(MESH_ITERS)], 6,
+     None),
+    ("deep", ["--impl", "overlap", "--fuse-steps", str(MESH_ITERS),
+              "--halo-width", "4"], 6, None),
+]
+#: the pack bench's blocks in phase 4: JAX's default and the main path's
+PACK_BENCH_SHAPES = [(128, 128, 512), (SIZES[3],) * 3]
 MEMBW_N = 1 << 26
 #: 25 rows of 128: the last chunk of 8 rows is ragged
 MEMBW_RAGGED = 128 * 8 * 3 + 128
@@ -815,11 +847,12 @@ def drive_main_path(torch, counters) -> dict:
     return launches
 
 
-def drive_mesh(torch, counters) -> dict:
+def drive_mesh(torch, counters, tol_iters: dict) -> dict:
     """Phase 4, the distributed stencil at world size 1: ``stencil --mesh
     1[,1[,1]]`` per (stencil, arm, pack) of MESH_RUNS and bc, and the
-    ``--tol`` runs; returns each kernel's launches summed over the
-    runs."""
+    ``--tol`` runs (their rounds kept in ``tol_iters`` by (key, --impl));
+    every row ran as CUDA graph replays. Returns each kernel's launches
+    summed over the runs."""
     from tpu_comm_torch import cli
 
     launches = {name: 0 for name in counters}
@@ -857,7 +890,10 @@ def drive_mesh(torch, counters) -> dict:
             want = {"platform": "cuda", "verified": verify, "impl": arm,
                     "pack": pack, "mesh": [1] * dim, "topo_plan": None,
                     "workload": f"{_workload(key)}-dist"
-                    + ("-conv" if tol else "")}
+                    + ("-conv" if tol else ""), "dispatch": "graph",
+                    # a graph a round, or one a loop of the slope
+                    "graph_steps": [4] if tol else [MESH_ITERS,
+                                                    3 * MESH_ITERS]}
             if arm == "multi":
                 want["t_steps"] = MESH_MULTI_T
             got = {k: row.get(k) for k in want}
@@ -884,9 +920,11 @@ def drive_mesh(torch, counters) -> dict:
                      f"{steps} (one a step)")
             for k in expected:
                 launches[k] += counts[k]
+            if tol:
+                tol_iters[key, impl] = row["iters"]
             emit({"main_path": {
                 "mesh": [1] * dim, "stencil": _workload(key), "impl": arm,
-                "pack": pack, "bc": bc,
+                "pack": pack, "bc": bc, "dispatch": row["dispatch"],
                 "tol": tol, **({"t_steps": MESH_MULTI_T}
                                if arm == "multi" else {}),
                 "launches": {k: counts[k] for k in sorted(expected)},
@@ -931,7 +969,9 @@ def drive_sweep(torch, counters) -> None:
             for r in rows:
                 # bcast-tree does nothing at one rank (JAX returns x): its
                 # slope is Python noise and may fall below the clock's
-                # resolution, where the row reports null rates, as JAX's
+                # resolution, where the row reports null rates, as JAX's;
+                # every other op's row must resolve (the sweep times a lost
+                # slope again with longer loops)
                 unresolved = op == "bcast-tree" and \
                     r["below_timing_resolution"]
                 got = {k: r.get(k) for k in want}
@@ -943,6 +983,11 @@ def drive_sweep(torch, counters) -> None:
             emit({"main_path": {
                 "sweep": {"op": op, "argv": extra, "mesh": [1]},
                 "launches": 0,
+                "below_timing_resolution": sum(
+                    r["below_timing_resolution"] for r in rows),
+                # rows timed again with a longer loop (a lost slope)
+                "retimed": sum(r["iters"] != SweepConfig.iters
+                               for r in rows),
                 "gbps_alg": {r["size"]: r["gbps_alg"] for r in rows},
                 "secs_per_iter": {r["size"]: r["secs_per_iter"]
                                   for r in rows},
@@ -1094,7 +1139,7 @@ def drive_halo(torch, counters) -> dict:
             "local_size": {r["size"]: r["local_size"] for r in rows},
             "elapsed_s": time.perf_counter() - T0}})
 
-    # the fused step: per-step launches from the eager run, then each
+    # the fused step: per-step launches from the unfused run, then each
     # fused row held to them over its own steps (verify + the slope's)
     block, pack = KERNELS["block"][3][0], PACK_KERNEL[0]
     secs, per_step = {}, None
@@ -1118,7 +1163,8 @@ def drive_halo(torch, counters) -> dict:
                  f"({per_step} a step over {steps} steps)")
         for k in want:
             launches[k] += counts[k]
-        secs["eager" if fuse is None else f"fuse{fuse}"] = \
+        # unfused: the run's own graphs (20- and 60-step chains)
+        secs["unfused" if fuse is None else f"fuse{fuse}"] = \
             row["secs_per_iter"]
     emit({"fused_step": {"argv": FUSE_ARGV[1:], "secs_per_iter": secs,
                          "launches_a_step": per_step,
@@ -1187,6 +1233,11 @@ def _wrapper_name(w) -> str:
     return f"{w.__module__.rsplit('.', 1)[-1]}.{w.__name__}"
 
 
+def _named(counts: dict) -> dict:
+    """Wrapper -> launches as wrapper name -> launches."""
+    return {_wrapper_name(w): n for w, n in counts.items()}
+
+
 def check_graph_replay(torch) -> dict:
     """Phase 4's card check of the graph runner: a chain of GRAPH_STEPS
     steps of each arm of GRAPH_ARMS (3D, periodic, float32, a mesh of one
@@ -1208,8 +1259,9 @@ def check_graph_replay(torch) -> dict:
         wrappers = launch_wrappers()
         for impl, pack_impl in GRAPH_ARMS.items():
             before = [w.launches for w in wrappers]
-            want = pdist.run_distributed(u, dec, GRAPH_STEPS, bc="periodic",
-                                         impl=impl, pack=pack_impl)
+            want = pdist._run_distributed_eager(
+                u, dec, GRAPH_STEPS, bc="periodic", impl=impl,
+                pack=pack_impl)
             eager = {_wrapper_name(w): w.launches - b
                      for w, b in zip(wrappers, before) if w.launches != b}
             graphs = {}
@@ -1223,7 +1275,8 @@ def check_graph_replay(torch) -> dict:
             torch.cuda.synchronize()
             replayed = {_wrapper_name(w): w.launches - b
                         for w, b in zip(wrappers, before) if w.launches != b}
-            (chain,) = graphs.values()
+            (chain,) = [g for g in graphs.values()
+                        if isinstance(g, pdist.GraphChain)]
             captured = {_wrapper_name(w): n
                         for w, n in chain.captured.items()}
             pdist.release_graphs(graphs)
@@ -1241,6 +1294,129 @@ def check_graph_replay(torch) -> dict:
     emit({"check": {"graph_replay": result,
                     "elapsed_s": time.perf_counter() - T0}})
     return result
+
+
+def check_graph_convergence(torch, tol_iters: dict) -> dict:
+    """Phase 4's card check of the convergence loop: each ``--tol`` run of
+    MESH_TOL_RUNS at its full size on a mesh of one (the driver's field),
+    a CUDA graph a round with the residual's ``all_reduce`` inside, held
+    to the eager loop: the same rounds (``iters_run``, also the CLI
+    row's), the same residual, the same field bitwise."""
+    import numpy as np
+
+    from tpu_comm_torch.bench import stencil as pstencil
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.domain import Decomposition
+    from tpu_comm_torch.kernels import distributed as pdist
+    from tpu_comm_torch.kernels import stencil_name
+    from tpu_comm_torch.topo import make_cart_mesh
+
+    result = {}
+    with launch.process_group("nccl"):
+        for key, impl in MESH_TOL_RUNS:
+            dim = DIM[key]
+            cfg = pstencil.StencilConfig(
+                dim=dim, points=key if key in BOX else 0, size=SIZES[dim],
+                iters=8, tol=1e-3, check_every=4, impl=impl,
+                mesh=(1,) * dim)
+            dec = Decomposition(make_cart_mesh(dim), cfg.global_shape)
+            u = dec.scatter(pstencil._initial_field(cfg, np.float32),
+                            "cuda", torch.float32)
+            kw = {"stencil": stencil_name(cfg.points)}
+            graphs = {}
+            try:
+                got = pdist.run_distributed_to_convergence(
+                    u, dec, cfg.tol, cfg.iters, check_every=cfg.check_every,
+                    impl=impl, graphs=graphs, **kw)
+            finally:
+                pdist.release_graphs(graphs)
+            want = pdist._convergence_eager(
+                u, dec, cfg.tol, cfg.iters, check_every=cfg.check_every,
+                impl=impl, **kw)
+            what = f"graph convergence {_workload(key)} {impl}"
+            if got[1:] != want[1:] or got[1] != tol_iters[key, impl]:
+                fail(f"{what}: graphed (iters, residual) {got[1:]}, eager "
+                     f"{want[1:]}, the CLI row's iters "
+                     f"{tol_iters[key, impl]}")
+            if not torch.equal(got[0], want[0]):
+                fail(f"{what}: the field differs from the eager loop's by "
+                     f"{(got[0] - want[0]).abs().max().item()}")
+            result[f"{_workload(key)} {impl}"] = {
+                "iters_run": got[1], "residual": got[2],
+                "tolerance": "bitwise (torch.equal)"}
+            del u, got, want
+    emit({"check": {"graph_convergence": result,
+                    "elapsed_s": time.perf_counter() - T0}})
+    return result
+
+
+def drive_overlap(torch, counters) -> dict:
+    """Phase 4, the ``overlap`` subcommand on the card at world size 1
+    (periodic 512^3: every face goes to the own rank through NCCL): the
+    reports of ``--impl overlap`` and ``partitioned``, which must read
+    compute in flight beside an NCCL kernel (``scheduled_overlap``), and
+    of ``torch``, the control, whose reading is reported; and the fused
+    audits, which must read one graph launch a dispatch, no host call
+    during it, and a graph of ``MESH_ITERS / trip`` trips' NCCL nodes
+    (``exchange_in_graph``; with ``--halo-width`` one width-1 window's a
+    window). Launches no kernel of the port. Returns the documents."""
+    docs = {}
+    base = ["overlap", "--dim", "3", "--size", str(SIZES[3]), "--bc",
+            "periodic"]
+    for name, extra, sends, overlap in OVERLAP_RUNS:
+        argv = base + extra
+        (doc,), counts = _run_counted(counters, argv)
+        what = " ".join(argv)
+        emit({"overlap": {"argv": extra, **doc,
+                          "elapsed_s": time.perf_counter() - T0}})
+        _want_launched(what, counts, set())
+        if doc["platform"] != "cuda" or doc["n_permutes"] != sends:
+            fail(f"{what}: {doc}, expected {sends} P2P ops a step")
+        if "--fuse-steps" in extra:
+            want = {"n_executables": 1, "exchange_in_graph": True,
+                    "host_roundtrips_between_steps": 0}
+            if "--halo-width" in extra:
+                want["one_exchange_per_window"] = True
+            _want_row(what, doc, want)
+        elif doc["n_async_pairs"] < 1 or not isinstance(
+                doc["scheduled_overlap"], bool) or (
+                overlap is not None and doc["scheduled_overlap"] is not
+                overlap):
+            fail(f"{what}: {doc}, expected NCCL kernels and "
+                 f"scheduled_overlap {overlap if overlap else 'a bool'}")
+        docs[name] = doc
+    return docs
+
+
+def drive_pack_bench(torch, counters) -> dict:
+    """Phase 4, the ``pack`` subcommand on the card, both arms, at JAX's
+    default block and at the main path's 512^3: verified rows timed as
+    graph replays; the kernel arm launches the face-pack kernel once a
+    pack (the verify pack, then (warmup + reps) x (iters + 3 iters)), the
+    fused arm none. Returns the face-pack kernel's launches."""
+    launches = 0
+    for shape in PACK_BENCH_SHAPES:
+        argv = ["pack", "--nz", str(shape[0]), "--ny", str(shape[1]),
+                "--nx", str(shape[2]), "--impl", "both"]
+        rows, counts = _run_counted(counters, argv)
+        what = " ".join(argv)
+        for row, arm in zip(rows, ("fused", "kernel")):
+            _want_row(what, row, {"platform": "cuda", "verified": True,
+                                  "dispatch": "graph", "impl": arm,
+                                  "size": list(shape)})
+        want = 1 + (2 + 5) * 4 * 20  # the CLI's defaults
+        if counts[PACK_KERNEL[0]] != want or len(rows) != 2:
+            fail(f"{what}: {len(rows)} rows, {counts[PACK_KERNEL[0]]} "
+                 f"pack launches, expected 2 and {want}")
+        _want_launched(what, counts, {PACK_KERNEL[0]})
+        launches += counts[PACK_KERNEL[0]]
+        emit({"pack_bench": {
+            "size": list(shape),
+            **{r["impl"]: {k: r[k] for k in ("secs_per_iter", "gbps_faces",
+                                              "gbps_eff", "bytes_per_iter")}
+               for r in rows},
+            "elapsed_s": time.perf_counter() - T0}})
+    return {PACK_KERNEL[0]: launches}
 
 
 def library_call(torch, key: int):
@@ -1565,17 +1741,28 @@ def measure_ghost(torch, mods) -> dict:
     return out
 
 
-#: the distributed steps phase 5 times: (key, arm, --pack); the 3D
-#: block steps with each pack are timed in turns instead (PACK_STEPS)
-DIST_STEPS = [(3, "stream", "kernel"), (3, "overlap", "kernel"),
-              (3, "torch", "fused"), (3, "multi", "fused"),
-              (9, "block", "fused"), (9, "stream", "fused"),
-              (9, "overlap", "fused"), (9, "multi", "fused"),
-              (27, "block", "fused"), (27, "stream", "fused"),
-              (27, "overlap", "fused"), (27, "multi", "fused"),
-              (1, "wave", "fused"), (2, "wave", "fused"),
-              (3, "wave", "fused"), (9, "wave", "fused"),
-              (27, "wave", "fused")]
+#: the distributed steps phase 5 times: (key, arm, --pack, options), each
+#: eager and as a CUDA graph replay in turns; the 3D block steps with
+#: each pack are also timed in turns with each other (PACK_STEPS)
+DIST_STEPS = [(1, "block", "fused", {}), (2, "block", "fused", {}),
+              (3, "block", "kernel", {}), (3, "block", "fused", {}),
+              (3, "stream", "kernel", {}), (3, "overlap", "kernel", {}),
+              (3, "torch", "fused", {}), (3, "multi", "fused", {}),
+              (2, "partitioned", "fused", {"halo_parts": 4}),
+              (2, "overlap", "fused", {"halo_width": 4}),
+              (3, "block", "kernel", {"halo_wire": "bfloat16"}),
+              (9, "block", "fused", {}), (9, "stream", "fused", {}),
+              (9, "overlap", "fused", {}), (9, "multi", "fused", {}),
+              (27, "block", "fused", {}), (27, "stream", "fused", {}),
+              (27, "overlap", "fused", {}), (27, "multi", "fused", {}),
+              (1, "wave", "fused", {}), (2, "wave", "fused", {}),
+              (3, "wave", "fused", {}), (9, "wave", "fused", {}),
+              (27, "wave", "fused", {})]
+#: steps of the graph a phase 5 step is replayed in (a multi trip is
+#: MESH_MULTI_T steps, a deep-halo trip a window)
+DIST_GRAPH_STEPS = 20
+#: replays a timing of the graphed step makes
+DIST_GRAPH_REPS = 3
 #: the 3D block step with the face-pack kernel and with views, timed in
 #: turns with each other (:func:`measure_pack_steps`)
 PACK_STEPS = [(3, "block", "kernel"), (3, "block", "fused")]
@@ -1618,43 +1805,95 @@ def dist_exchange(key: int, impl: str, pack: str, t: int, u, cart):
 
 def measure_dist_steps(torch, mods) -> list:
     """Phase 5, the whole distributed step at full float32 size on a mesh
-    of one (exchange through NCCL, update, face recompute, freeze) beside
-    its update kernel alone and its exchange alone, per (stencil, arm,
-    pack) of DIST_STEPS and bc. A ``multi`` step (t = MESH_MULTI_T) is one
-    width-t exchange and t updates: its time per iteration is a t-th of
-    it."""
+    of one (exchange through NCCL, update, face recompute, freeze) per
+    (stencil, arm, pack, options) of DIST_STEPS and bc: eager, one call a
+    step as the CPU runs it, beside the same step replayed from a CUDA
+    graph of DIST_GRAPH_STEPS steps as a card run dispatches it, in turns
+    (:func:`in_turns`); the graph's chain held bitwise to the eager
+    chain; and beside them the update kernel alone and the exchange
+    alone. A ``multi`` step (t = MESH_MULTI_T) is one width-t exchange
+    and t updates, a deep-halo step a window of ``halo_width``: its time
+    per iteration is a t-th of it."""
     from tpu_comm_torch.comm import launch
-    from tpu_comm_torch.kernels import stencil_name
-    from tpu_comm_torch.kernels.distributed import make_local_step
+    from tpu_comm_torch.kernels import launch_wrappers, stencil_name
+    from tpu_comm_torch.kernels.distributed import (
+        GraphChain,
+        _run_eager,
+        _step_and_trips,
+    )
     from tpu_comm_torch.topo import make_cart_mesh
 
     rows = []
+    wrappers = launch_wrappers()
     with launch.process_group("nccl"):
-        for key, impl, pack in DIST_STEPS:
+        for key, impl, pack, opts in DIST_STEPS:
             dim = DIM[key]
             shape = (SIZES[dim],) * dim
             u = random_field(torch, shape, torch.float32, seed=42)
             dst = torch.empty_like(u)
             points = key if key in BOX else 0
-            t = MESH_MULTI_T if impl == "multi" else 1
-            extra = {"t_steps": t} if impl == "multi" else {}
+            t = (MESH_MULTI_T if impl == "multi"
+                 else opts.get("halo_width", 1))
+            extra = dict(opts, **({"t_steps": t} if impl == "multi" else {}))
+            trips = DIST_GRAPH_STEPS // t
             for bc in ("dirichlet", "periodic"):
                 cart = make_cart_mesh(dim, periodic=bc == "periodic")
-                step = make_local_step(cart, bc, impl, pack=pack,
-                                       stencil=stencil_name(points), **extra)
-                dist_step_ms = time_ms(torch, lambda: step(u, out=dst),
-                                       20 // t)
-                exchange = dist_exchange(key, impl, pack, t, u, cart)
+                # the deep window takes its own options only
+                step_opts = extra if "halo_width" in opts else dict(
+                    extra, pack=pack, stencil=stencil_name(points))
+                step, _ = _step_and_trips(cart, bc, impl, step_opts, t)
+                chain = GraphChain(step, trips, torch.empty_like(u),
+                                   torch.empty_like(u))
+                try:
+                    chain.x.copy_(u)
+                    chain.dispatch()  # the eager warm-up, then the capture
+                    chain.x.copy_(u)
+                    chain.dispatch()  # a replay
+                    before = [w.launches for w in wrappers]
+                    want = _run_eager(step, u, trips)
+                    eager = {w: w.launches - b for w, b in
+                             zip(wrappers, before) if w.launches != b}
+                    what = f"graphed {_workload(key)} {impl} {opts} {bc}"
+                    if not torch.equal(chain.x, want):
+                        fail(f"{what} differs from the eager chain by "
+                             f"{(chain.x - want).abs().max().item()}")
+                    if chain.captured != eager:
+                        fail(f"{what}: a replay launches "
+                             f"{_named(chain.captured)}, the eager chain "
+                             f"{_named(eager)}")
+                    del want
+                    turns = in_turns(torch, {
+                        "eager": lambda: step(u, out=dst),
+                        "graph": chain.dispatch,
+                    }, timer=lambda label, fn: time_ms(
+                        torch, fn, trips if label == "eager"
+                        else DIST_GRAPH_REPS))
+                finally:
+                    chain.release()
+                eager = turns["eager"]
+                graph = {k: v / trips if k != "runs" else
+                         [r / trips for r in v]
+                         for k, v in turns["graph"].items()}
+                exchange = (None if opts else
+                            dist_exchange(key, impl, pack, t, u, cart))
                 exchange_ms = None if exchange is None else time_ms(
                     torch, exchange, 20)
                 kernel = dist_kernel(torch, mods, key, impl, u, dst)
                 kernel_ms = None if kernel is None else time_ms(
                     torch, kernel, 20)
                 rows.append({"stencil": _workload(key), "impl": impl,
-                             "pack": pack, "bc": bc, "shape": list(shape),
-                             "dtype": "float32", "t_steps": t,
-                             "dist_step_ms": dist_step_ms,
-                             "dist_step_ms_per_iter": dist_step_ms / t,
+                             "pack": pack, **opts, "bc": bc,
+                             "shape": list(shape), "dtype": "float32",
+                             "t_steps": t, "rounds": MEMBW_ROUNDS,
+                             "dist_step_ms": eager["ms"],
+                             "dist_step_spread_ms": eager["spread_ms"],
+                             "dist_step_ms_per_iter": eager["ms"] / t,
+                             "graph_step_ms": graph["ms"],
+                             "graph_step_spread_ms": graph["spread_ms"],
+                             "graph_step_ms_per_iter": graph["ms"] / t,
+                             "graph_steps": trips * t,
+                             "graph_bitwise": True,
+                             "launches_a_replay": _named(chain.captured),
                              "kernel_ms": kernel_ms,
                              "exchange_ms": exchange_ms})
                 emit({"dist_step": {**rows[-1],
@@ -2591,12 +2830,17 @@ def main() -> int:
     launches = drive_main_path(torch, counters)
     multi_launches = drive_multi(torch, counters)
     membw_launches = drive_membw(torch, counters)
-    mesh_launches = drive_mesh(torch, counters)
+    tol_iters = {}
+    mesh_launches = drive_mesh(torch, counters, tol_iters)
     drive_sweep(torch, counters)
     drive_profile(torch, counters)
     for name, n in drive_halo(torch, counters).items():
         mesh_launches[name] += n
     check_graph_replay(torch)
+    check_graph_convergence(torch, tol_iters)
+    drive_overlap(torch, counters)
+    for name, n in drive_pack_bench(torch, counters).items():
+        mesh_launches[name] += n
     times = {arm: measure_times(torch, mods, arm) for arm in KERNELS}
     multi_times = measure_multi(torch, mods)
     ghost_times = measure_ghost(torch, mods)

@@ -1048,6 +1048,13 @@ def _mesh_of_one(dim, bc, size, dtype=torch.float32, device="cuda"):
     return dec, dec.scatter(u0, device, dtype)
 
 
+def _chains(graphs: dict) -> list:
+    """The graphs of a runners' cache (it also holds their buffers)."""
+    from tpu_comm_torch.kernels.graphs import Graph
+
+    return [g for g in graphs.values() if isinstance(g, Graph)]
+
+
 @pytest.mark.parametrize("impl", ["block", "stream"])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_graph_replayed_chain_equals_eager(card, dim, impl):
@@ -1064,7 +1071,8 @@ def test_graph_replayed_chain_equals_eager(card, dim, impl):
         keep = u.clone()
         wrappers = launch_wrappers()
         before = [w.launches for w in wrappers]
-        want = pdist.run_distributed(u, dec, 20, bc="periodic", impl=impl)
+        want = pdist._run_distributed_eager(u, dec, 20, bc="periodic",
+                                            impl=impl)
         eager = [w.launches - b for w, b in zip(wrappers, before)]
         for fuse in (20, 5):
             graphs = {}
@@ -1072,7 +1080,7 @@ def test_graph_replayed_chain_equals_eager(card, dim, impl):
             got, n = pdist.run_distributed_fused(
                 u, dec, 20, fuse, bc="periodic", impl=impl, graphs=graphs)
             torch.cuda.synchronize()
-            (chain,) = graphs.values()
+            (chain,) = _chains(graphs)
             assert n == 20 // fuse and chain.replays == n - 1
             assert [w.launches - b for w, b in zip(wrappers, before)] == eager
             assert sum(chain.captured.values()) == sum(eager) // n
@@ -1115,3 +1123,159 @@ def test_halo_sweep_at_world_size_1_on_the_card(card):
             assert r["platform"] == "cuda" and r["verified"] is True
             assert r["halo_gbps_per_chip"] == 0.0
             assert r.get("wire_dtype") == wire
+
+
+#: every mesh arm a card run graphs: (stencil, dim, --impl, options)
+GRAPH_ARMS = [
+    ("star", 1, "block", {}), ("star", 2, "block", {}),
+    ("star", 3, "block", {"pack": "kernel"}), ("star", 3, "stream", {}),
+    ("star", 3, "overlap", {"pack": "kernel"}), ("star", 2, "torch", {}),
+    ("star", 2, "partitioned", {"halo_parts": 3}),
+    ("star", 1, "wave", {}), ("star", 2, "wave", {}), ("star", 3, "wave", {}),
+    ("star", 2, "multi", {"t_steps": 4}), ("star", 3, "multi", {"t_steps": 2}),
+    ("9pt", 2, "overlap", {}), ("9pt", 2, "block", {}), ("9pt", 2, "wave", {}),
+    ("9pt", 2, "multi", {"t_steps": 4}), ("27pt", 3, "stream", {}),
+    ("27pt", 3, "wave", {}), ("27pt", 3, "multi", {"t_steps": 2}),
+    ("star", 2, "block", {"halo_wire": "bfloat16"}),
+    ("star", 3, "wave", {"halo_wire": "bfloat16"}),
+    ("star", 2, "overlap", {"halo_width": 4}),
+    ("star", 3, "torch", {"halo_width": 2}),
+]
+GRAPH_SIZES = {1: 1 << 16, 2: 256, 3: 48}
+
+
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("stencil,dim,impl,opts", GRAPH_ARMS)
+def test_graphed_run_equals_the_eager_run(card, stencil, dim, impl, opts,
+                                          bc):
+    """``run_distributed`` on the card replays CUDA graphs of its steps
+    (exchange through NCCL at world size 1 included); every arm's result
+    equals the eager steps' bitwise, and the counters read the same
+    launches. 8 steps: one graph; 136: a graph of a chunk of the trips
+    (34 steps, or 34 passes or windows), replayed; both graphs in one
+    cache, over its one pair of buffers."""
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.kernels import distributed as pdist, launch_wrappers
+    from tpu_comm_torch.kernels.graphs import graph_chunk
+
+    kw = dict(opts, **({"stencil": stencil} if stencil != "star" else {}))
+    with launch.process_group("nccl"):
+        dec, u = _mesh_of_one(dim, bc, GRAPH_SIZES[dim])
+        wrappers = launch_wrappers()
+        graphs = {}
+        for iters in (8, 136):
+            before = [w.launches for w in wrappers]
+            want = pdist._run_distributed_eager(u, dec, iters, bc=bc,
+                                                impl=impl, **kw)
+            eager = [w.launches - b for w, b in zip(wrappers, before)]
+            for _ in range(2):  # the capture's run, then a replay
+                before = [w.launches for w in wrappers]
+                got = pdist.run_distributed(u, dec, iters, bc=bc, impl=impl,
+                                            graphs=graphs, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (iters, impl)
+                assert [w.launches - b for w, b in
+                        zip(wrappers, before)] == eager
+            # a trip is a multi pass or a deep window of steps
+            trips = iters // (opts.get("t_steps") or opts.get("halo_width")
+                              or 1)
+            (chain,) = [g for g in _chains(graphs)
+                        if g.trips == graph_chunk(trips)]
+            # the first dispatch ran eagerly and was captured
+            assert chain.replays == 2 * (trips // chain.trips) - 1
+        assert len(_chains(graphs)) == len(graphs) - 1 == 2
+        pdist.release_graphs(graphs)
+
+
+@pytest.mark.parametrize("stencil,dim,impl", [
+    ("star", 2, "block"), ("star", 2, "wave"), ("star", 3, "overlap"),
+    ("9pt", 2, "block"), ("star", 2, "torch")])
+def test_graphed_convergence_equals_the_eager_loop(card, stencil, dim, impl):
+    """The convergence loop on the card, a graph a round with the
+    residual's all_reduce inside: the same rounds, residual and field as
+    the eager loop."""
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.kernels import distributed as pdist
+
+    kw = {"stencil": stencil} if stencil != "star" else {}
+    with launch.process_group("nccl"):
+        dec, u = _mesh_of_one(dim, "dirichlet", GRAPH_SIZES[dim])
+        for tol, max_iters, every in ((1e-3, 40, 4), (0.5, 40, 3),
+                                      (1e-9, 7, 7)):
+            want = pdist._convergence_eager(u, dec, tol, max_iters,
+                                            check_every=every, impl=impl,
+                                            **kw)
+            graphs = {}
+            for _ in range(2):
+                got = pdist.run_distributed_to_convergence(
+                    u, dec, tol, max_iters, check_every=every, impl=impl,
+                    graphs=graphs, **kw)
+                assert got[1:] == want[1:], (tol, got[1:], want[1:])
+                assert torch.equal(got[0], want[0])
+            pdist.release_graphs(graphs)
+
+
+def test_card_mesh_rows_say_they_ran_as_graphs(card):
+    from tpu_comm_torch.bench import stencil
+
+    common = dict(dim=2, size=256, mesh=(1, 1), bc="periodic", warmup=1,
+                  reps=2, verify=True, verify_iters=3)
+    row = stencil.run_distributed_bench(stencil.StencilConfig(
+        iters=100, impl="block", **common))
+    assert (row["dispatch"], row["graph_steps"]) == ("graph", [50, 60])
+    assert row["verified"] is True
+    conv = stencil.run_distributed_bench(stencil.StencilConfig(
+        iters=40, tol=1e-3, check_every=5, impl="wave", **common))
+    assert (conv["dispatch"], conv["graph_steps"]) == ("graph", [5])
+    fused = stencil.run_distributed_bench(stencil.StencilConfig(
+        iters=20, fuse_steps=10, impl="overlap", **common))
+    assert (fused["dispatch"], fused["graph_steps"]) == ("graph", [10])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pack_bench_on_the_card(card, dtype):
+    """Both arms verified, timed as graph replays; the kernel arm's
+    launches are counted through the replays."""
+    from tpu_comm_torch.bench.packbench import PackConfig, run_pack_bench
+    from tpu_comm_torch.kernels import pack as packmod
+
+    for impl in ("fused", "kernel"):
+        before = packmod.pack_faces.launches
+        row = run_pack_bench(PackConfig(impl=impl, dtype=dtype, iters=4,
+                                        warmup=1, reps=2))
+        assert row["platform"] == "cuda" and row["verified"] is True
+        assert row["dispatch"] == "graph"
+        launched = packmod.pack_faces.launches - before
+        # the verify pack, then 3 calls of the 4- and the 12-pack loop
+        assert launched == (1 + 3 * 16 if impl == "kernel" else 0)
+
+
+@pytest.mark.parametrize("impl,opts,sends", [
+    ("overlap", (), 6), ("partitioned", (("halo_parts", 2),), 12),
+    ("torch", (), 6)])
+def test_overlap_report_on_the_card(card, impl, opts, sends):
+    """At world size 1 a periodic 3D step sends each face to its own rank
+    through NCCL: the report reads the P2P ops, the NCCL kernels and a
+    verdict from the trace."""
+    from tpu_comm_torch.bench.overlap import analyze_overlap, audit_fused
+    from tpu_comm_torch.comm import launch
+
+    with launch.process_group("nccl"):
+        dec, _ = _mesh_of_one(3, "periodic", 64)
+        rep = analyze_overlap(dec, bc="periodic", impl=impl, opts=opts)
+        assert (rep.platform, rep.n_permutes) == ("cuda", sends)
+        assert rep.n_async_pairs >= 1
+        assert isinstance(rep.scheduled_overlap, bool)
+        doc = audit_fused(dec, bc="periodic", impl=impl, fuse_steps=4,
+                          opts=opts)
+        assert doc["n_executables"] == 1, doc
+        assert doc["exchange_in_graph"] is True, doc
+        assert doc["nccl_nodes"] == 4 * doc["nccl_nodes_per_trip"] > 0, doc
+        assert doc["host_roundtrips_between_steps"] == 0, doc
+        if impl != "partitioned":
+            deep = audit_fused(dec, bc="periodic", impl=impl, fuse_steps=4,
+                               halo_width=2)
+            assert deep["one_exchange_per_window"] is True, deep
+            assert deep["exchange_in_graph"] is True, deep
+            assert deep["nccl_nodes"] == 2 * deep["nccl_nodes_per_trip"] == (
+                2 * deep["nccl_nodes_per_step_reference"]), deep

@@ -73,6 +73,7 @@ from tpu_comm_torch.domain import Decomposition
 from tpu_comm_torch.kernels import distributed as pdist
 from tpu_comm_torch.kernels.tiling import DTYPES, to_numpy_field
 from tpu_comm_torch.topo import make_cart_mesh
+from torch_fake_clock import PER_ITER_S, READ_S
 
 ROOT = Path(__file__).resolve().parents[1]
 #: global shape and mesh per dim: local blocks the TPU kernels accept
@@ -306,10 +307,12 @@ def test_world_of_one_equals_jax_bitwise(dim, bc, impl):
     )
     block = dec.scatter(u0)
     keep = block.clone()
+    graphs = {}
     got = pdist.run_distributed(block, dec, ITERS, bc=bc, impl=impl,
-                                pack=pack)
+                                pack=pack, graphs=graphs)
     np.testing.assert_array_equal(dec.gather(got), want)
     assert (block == keep).all()  # the input block is only read
+    assert graphs == {}  # the CPU path captures no graph
 
 
 @pytest.mark.parametrize("impl", ["overlap", "block"])
@@ -594,17 +597,21 @@ def test_rows_pass_the_jax_row_schema(ranks):
         assert (r["mesh"], r["topo_plan"], r["pack"], r["local_size"]) == (
             [2, 2], None, "fused", [32, 32])
         assert r["platform"] == "cpu" and r["verified"] is True
+        # the CPU steps eagerly; the card's rows say "graph"
+        assert r["dispatch"] == "eager" and "graph_steps" not in r
         jcart = jmake_cart_mesh(2, backend="cpu-sim", shape=(2, 2))
         assert r["halo_bytes_per_chip_per_iter"] == jhalo.halo_bytes_per_iter(
             (32, 32), jcart, 4) == 2 * 2 * 32 * 4
-        if r.get("below_timing_resolution"):
-            # a slope lost in a busy machine's noise is reported as null
-            assert r["halo_gbps_per_chip"] is None and r["gbps_eff"] is None
-            continue
-        assert r["halo_gbps_per_chip"] == pytest.approx(
-            r["halo_bytes_per_chip_per_iter"] / r["secs_per_iter"] / 1e9)
-        assert r["gbps_eff"] == pytest.approx(
-            2 * 32 * 32 * 4 / r["secs_per_iter"] / 1e9)
+        # the ranks time on the fake clock: a fixed row's slope is its
+        # per-iteration cost, a --tol row's timed run one clock read
+        if "tol" in r:
+            assert r["secs_per_iter"] == READ_S / r["iters"]
+        else:
+            assert r["below_timing_resolution"] is False
+            assert r["secs_per_iter"] == PER_ITER_S
+        assert r["halo_gbps_per_chip"] == \
+            r["halo_bytes_per_chip_per_iter"] / r["secs_per_iter"] / 1e9
+        assert r["gbps_eff"] == 2 * 32 * 32 * 4 / r["secs_per_iter"] / 1e9
     assert (row["workload"], row["impl"]) == ("stencil2d-dist", "overlap")
     assert (conv["workload"], conv["impl"]) == ("stencil2d-dist-conv",
                                                 "block")

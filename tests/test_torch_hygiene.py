@@ -15,11 +15,13 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "tpu_comm_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
-    # what the mesh, collective, sweep and halo tests run on their
-    # spawned ranks
+    # what the mesh, collective, sweep, halo and overlap tests run on
+    # their spawned ranks, and the clock those ranks install
     ROOT / "tests" / "torch_mesh_cases.py",
     ROOT / "tests" / "torch_coll_cases.py",
     ROOT / "tests" / "torch_halo_cases.py",
+    ROOT / "tests" / "torch_overlap_cases.py",
+    ROOT / "tests" / "torch_fake_clock.py",
 ]
 FORBIDDEN_ANYWHERE = ("jax", "jaxlib", "ml_dtypes", "tpu_comm")
 FORBIDDEN_AT_TOP = ("triton",)
@@ -74,9 +76,14 @@ def test_the_walk_sees_the_whole_package():
         "tpu_comm_torch/bench/sweep.py",
         "tpu_comm_torch/bench/trace.py",
         "tpu_comm_torch/bench/halosweep.py",
+        "tpu_comm_torch/bench/overlap.py",
+        "tpu_comm_torch/bench/packbench.py",
+        "tpu_comm_torch/kernels/graphs.py",
         "tests/torch_mesh_cases.py",
         "tests/torch_coll_cases.py",
         "tests/torch_halo_cases.py",
+        "tests/torch_overlap_cases.py",
+        "tests/torch_fake_clock.py",
         "chip_smoke.py",
     } <= names
 

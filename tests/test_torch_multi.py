@@ -26,9 +26,6 @@ Inputs are seeded NumPy fields. Tolerances:
 """
 
 import json
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -49,8 +46,8 @@ from tpu_comm_torch.kernels import jacobi2d as p2
 from tpu_comm_torch.kernels import kernels_for, run_steps, run_steps_multi
 from tpu_comm_torch.kernels import reference as pref
 from tpu_comm_torch.kernels import stencil9 as p9
+from torch_fake_clock import PER_ITER_S, fake_clock
 
-ROOT = Path(__file__).resolve().parents[1]
 #: family (the driver's --points, or the star's dim) -> (JAX module, port
 #: module, a shape the TPU kernel takes, the JAX chunk that crosses strip
 #: seams, add levels a step: L of the module docstring)
@@ -263,24 +260,24 @@ def test_sub_fp32_multi_verifies_against_golden(key, dtype):
     assert rec["verified"] and rec["dtype"] == dtype
 
 
-def test_cli_row_carries_t_steps_and_passes_the_jax_row_schema(tmp_path):
+def test_cli_row_carries_t_steps_and_passes_the_jax_row_schema(tmp_path,
+                                                               capsys):
+    """The CLI in process, timed on the test's clock: the row's rate is
+    its lattice updates over the slope."""
     path = tmp_path / "rows.jsonl"
-    res = subprocess.run(
-        [sys.executable, "-m", "tpu_comm_torch", "stencil", "--backend",
-         "cpu", "--dim", "2", "--size", "64", "--iters", "16", "--impl",
-         "multi", "--t-steps", "4", "--verify", "--reps", "7", "--jsonl",
-         str(path)],
-        cwd=ROOT, capture_output=True, text=True, timeout=300,
-    )
-    assert res.returncode == 0, res.stderr
+    with fake_clock():
+        rc = cli.main(["stencil", "--backend", "cpu", "--dim", "2",
+                       "--size", "64", "--iters", "16", "--impl", "multi",
+                       "--t-steps", "4", "--verify", "--jsonl", str(path)])
+    assert rc == 0, capsys.readouterr().err
     row = json.loads(path.read_text())
+    assert row["secs_per_iter"] == PER_ITER_S
     assert (row["workload"], row["impl"], row["t_steps"], row["verified"],
             row["platform"]) == ("stencil2d", "multi", 4, True, "cpu")
     assert validate_row(row) == ([], [])
     # the 2N-bytes-per-iteration convention: lattice updates, not wire
     # traffic
-    assert row["gbps_eff"] == pytest.approx(
-        2 * 64 * 64 * 4 / row["secs_per_iter"] / 1e9)
+    assert row["gbps_eff"] == 2 * 64 * 64 * 4 / PER_ITER_S / 1e9
 
 
 def test_cli_t_steps_defaults_to_jax_value():

@@ -14,8 +14,16 @@ from tpu_comm.bench import stencil as jstencil
 from tpu_comm.kernels import reference as jref
 from tpu_comm_torch import cli
 from tpu_comm_torch.bench import stencil as pstencil
+from torch_fake_clock import PER_ITER_S, READ_S, fake_clock
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def clock():
+    """The drivers' clock, the test's own (``torch_fake_clock``)."""
+    with fake_clock() as c:
+        yield c
 #: (size, chunk) per dim: small enough for interpret mode, chunked so
 #: the JAX arm crosses chunk seams
 DRIVER = {1: (8192, 8), 2: (128, 16), 3: (128, 8)}
@@ -85,24 +93,25 @@ def test_sub_fp32_driver_verifies_against_golden(tmp_path, dtype, bc):
     assert np.load(tmp_path / "u.npy").shape == (64, 64)
 
 
-def test_row_passes_the_jax_row_schema(tmp_path):
+def test_row_passes_the_jax_row_schema(tmp_path, clock):
+    """Both rows pass the JAX row schema, and rate their bytes over the
+    test's clock: the fixed row over the slope, the ``--tol`` row over
+    its timed run (one clock read) a step."""
     path = tmp_path / "rows.jsonl"
     for tol in (None, 0.5):
-        # several reps: the slope of two single samples of so short a loop
-        # can come out non-positive on a busy machine, and the rate then
-        # null
         pstencil.run_single_device(_port_cfg(
-            dim=1, size=4096, iters=4, tol=tol, jsonl=str(path), reps=7
+            dim=1, size=4096, iters=4, tol=tol, jsonl=str(path)
         ))
     rows = [json.loads(line) for line in path.read_text().splitlines()]
     assert [r["workload"] for r in rows] == ["stencil1d", "stencil1d-conv"]
+    fixed, conv = rows
+    assert fixed["secs_per_iter"] == PER_ITER_S
+    assert conv["secs_per_iter"] == READ_S / conv["iters"]
     for row in rows:
         errors, warnings = validate_row(row)
         assert errors == [] and warnings == []
         assert isinstance(row["gbps_eff"], float)
-        assert row["gbps_eff"] == pytest.approx(
-            2 * 4096 * 4 / row["secs_per_iter"] / 1e9
-        )
+        assert row["gbps_eff"] == 2 * 4096 * 4 / row["secs_per_iter"] / 1e9
 
 
 def test_cli_runs_on_cpu(tmp_path):

@@ -45,6 +45,7 @@ from tpu_comm_torch.bench import sweep as psweep
 from tpu_comm_torch.bench.timing import emit_jsonl
 from tpu_comm_torch.comm import collectives as pcoll
 from tpu_comm_torch.comm import launch
+from torch_fake_clock import PER_ITER_S, fake_clock
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLDS = (4, 3, 1)
@@ -155,11 +156,10 @@ def test_rows_on_4_ranks_pass_the_schema_with_jax_identity(world, o):
         assert errors == [] and warnings == []
         assert {k: row[k] for k in IDENTITY} == {k: jrow[k] for k in IDENTITY}
         assert row["backend"] == "cpu" and set(jrow) <= set(row)
-        if row["below_timing_resolution"]:
-            assert row["gbps_bus"] is None and row["gbps_alg"] is None
-            continue
-        assert row["gbps_alg"] == pytest.approx(
-            row["size"] / row["secs_per_iter"] / 1e9)
+        # the ranks time on the fake clock (``torch_fake_clock``)
+        assert row["below_timing_resolution"] is False
+        assert row["secs_per_iter"] == PER_ITER_S
+        assert row["gbps_alg"] == row["size"] / PER_ITER_S / 1e9
         assert row["gbps_bus"] == pytest.approx(
             jsweep.bus_factor(op, 4) * row["gbps_alg"])
 
@@ -328,12 +328,52 @@ def test_cli_sweep_refuses_a_world_the_launcher_did_not_start(capsys,
         capsys.readouterr().err)
 
 
+@pytest.mark.parametrize("lost,want_iters,calls", [
+    (1, 4 * SMALL["iters"], 2),
+    (psweep.SLOPE_RETRIES + 1, 16 * SMALL["iters"], 3),
+])
+def test_a_lost_slope_is_timed_again_with_a_longer_loop(lost, want_iters,
+                                                        calls):
+    """The first ``lost`` timings of a row see no slope (the clock moves
+    only by its reads); each is timed again with a loop 4x longer, up to
+    SLOPE_RETRIES times. A row resolved on a retry carries that loop's
+    length and exact rates; one never resolved says so, with null rates,
+    as JAX's."""
+    seen = []
+    with fake_clock(per_iter_s=0.0) as clock:
+        timed = psweep.time_loop_per_iter
+
+        def scripted(run_iters, iters, *args, **kwargs):
+            seen.append(iters)
+            if len(seen) > lost:
+                clock.per_iter_s = PER_ITER_S
+            return timed(run_iters, iters, *args, **kwargs)
+
+        psweep.time_loop_per_iter = scripted
+        try:
+            (row,) = psweep.run_sweep(psweep.SweepConfig(op="allreduce",
+                                                         **SMALL))
+        finally:
+            psweep.time_loop_per_iter = timed
+    assert seen == [SMALL["iters"] * 4 ** i for i in range(calls)]
+    assert row["iters"] == want_iters
+    if lost > psweep.SLOPE_RETRIES:
+        assert row["below_timing_resolution"] is True
+        assert (row["secs_per_iter"], row["gbps_alg"]) == (0.0, None)
+    else:
+        assert row["below_timing_resolution"] is False
+        assert row["secs_per_iter"] == PER_ITER_S
+        assert row["gbps_alg"] == row["size"] / PER_ITER_S / 1e9
+
+
 def test_launcher_world_of_one_in_process_is_a_group_of_one():
     """A world of one builds its own group and leaves none behind."""
     import torch.distributed as dist
 
-    rows = psweep.run_sweep(psweep.SweepConfig(op="all-to-all", **SMALL))
+    with fake_clock():
+        rows = psweep.run_sweep(psweep.SweepConfig(op="all-to-all",
+                                                   **SMALL))
     assert [r["mesh"] for r in rows] == [[1]]
-    assert rows[0]["gbps_bus"] in (0.0, None)
+    assert rows[0]["gbps_bus"] == 0.0
     assert not dist.is_initialized()
     assert launch.backend_for("cpu") == "gloo"

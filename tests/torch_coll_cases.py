@@ -23,6 +23,7 @@ import torch_mesh_cases
 from tpu_comm_torch.bench import sweep as psweep
 from tpu_comm_torch.comm import collectives as coll
 from tpu_comm_torch.kernels.tiling import DTYPES, to_numpy_field
+from torch_fake_clock import fake_clock
 
 
 def _dtype(name):
@@ -61,8 +62,10 @@ def case_body(p):
 
 
 def case_sweep(p):
-    """``run_sweep`` from inside the group: its rows on rank 0."""
-    return psweep.run_sweep(psweep.SweepConfig(**p))
+    """``run_sweep`` from inside the group, on this rank's fake clock
+    (``torch_fake_clock``): its rows on rank 0."""
+    with fake_clock():
+        return psweep.run_sweep(psweep.SweepConfig(**p))
 
 
 def case_subgroup(p):

@@ -15,6 +15,7 @@ import torch_mesh_cases as mesh_cases
 from tpu_comm_torch.bench import halosweep as phalo
 from tpu_comm_torch.comm import halo
 from tpu_comm_torch.kernels import distributed as pdist
+from torch_fake_clock import fake_clock
 
 _setup, _np = mesh_cases._setup, mesh_cases._np
 
@@ -72,13 +73,17 @@ def case_halo_loop(p):
 
 
 def case_halo_sweep(p):
-    """``run_halo_sweep`` from inside the group: its rows on rank 0."""
-    return phalo.run_halo_sweep(phalo.HaloSweepConfig(**p))
+    """``run_halo_sweep`` from inside the group, on this rank's fake
+    clock: its rows on rank 0."""
+    with fake_clock():
+        return phalo.run_halo_sweep(phalo.HaloSweepConfig(**p))
 
 
 def case_deep_sweep(p):
-    """``run_deep_halo_sweep`` from inside the group."""
-    return phalo.run_deep_halo_sweep(phalo.DeepHaloSweepConfig(**p))
+    """``run_deep_halo_sweep`` from inside the group, on this rank's fake
+    clock."""
+    with fake_clock():
+        return phalo.run_deep_halo_sweep(phalo.DeepHaloSweepConfig(**p))
 
 
 KINDS = {

@@ -25,6 +25,7 @@ from tpu_comm_torch.domain import Decomposition
 from tpu_comm_torch.kernels import distributed as pdist
 from tpu_comm_torch.kernels.tiling import DTYPES, to_numpy_field
 from tpu_comm_torch.topo import make_cart_mesh
+from torch_fake_clock import fake_clock
 
 
 def _setup(p: dict):
@@ -48,21 +49,26 @@ def case_run(p):
     or the box stencil ``p["stencil"]``; ``t_steps`` for ``multi``)."""
     cart, dec, block = _setup(p)
     extra = {"t_steps": p["t_steps"]} if "t_steps" in p else {}
+    graphs = {}
     out = pdist.run_distributed(
         block, dec, p["iters"], bc=p["bc"], impl=p["impl"],
         pack=p.get("pack", "fused"), stencil=p.get("stencil", "star"),
-        **extra,
+        graphs=graphs, **extra,
     )
+    assert graphs == {}, "the CPU path captured a graph"
     return dec.gather(out)
 
 
 def case_conv(p):
     """``run_distributed_to_convergence``: (field on rank 0, iters, res)."""
     cart, dec, block = _setup(p)
+    graphs = {}
     out, it, res = pdist.run_distributed_to_convergence(
         block, dec, p["tol"], p["max_iters"], check_every=p["check_every"],
         bc=p["bc"], impl=p["impl"], stencil=p.get("stencil", "star"),
+        graphs=graphs,
     )
+    assert graphs == {}, "the CPU path captured a graph"
     return dec.gather(out), it, res
 
 
@@ -121,9 +127,10 @@ def case_verdict(p):
 
 
 def case_bench(p):
-    """``run_distributed_bench`` from inside the group: its row on rank
-    0."""
-    return pstencil.run_distributed_bench(pstencil.StencilConfig(**p))
+    """``run_distributed_bench`` from inside the group, timed on this
+    rank's fake clock (``torch_fake_clock``): its row on rank 0."""
+    with fake_clock():
+        return pstencil.run_distributed_bench(pstencil.StencilConfig(**p))
 
 
 KINDS = {

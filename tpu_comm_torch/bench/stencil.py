@@ -776,49 +776,52 @@ def run_rank(cfg: StencilConfig) -> dict | None:
             emit_jsonl(record, cfg.jsonl)
         return record
 
-    if cfg.tol is not None:
-        def run_conv():
-            return run_distributed_to_convergence(
-                u_dev, dec, cfg.tol, cfg.iters,
-                check_every=cfg.check_every, bc=cfg.bc, impl=cfg.impl,
-                **kwargs,
-            )
-
-        with maybe_profile(cfg.profile, device):
-            u_fin, iters_run, res = run_conv()
-            t = time_fn(lambda: run_conv()[0],
-                        warmup=max(cfg.warmup - 1, 0), reps=cfg.reps,
-                        barrier=barrier)
-        record = {
-            "workload": f"{_stencil_tag(cfg)}-dist-conv",
-            **base,
-            **_convergence_fields(cfg, iters_run, res, t, traffic,
-                                  halo_traffic),
-        }
-        if cfg.verify:
-            got = dec.gather(u_fin)
-            _collective_verdict(
-                lambda: _verify_convergence(cfg, got, iters_run, u0), device
-            )
-        return finish(record, u_fin)
-
-    # the chains a fused run captures on the card, one a fuse_steps
-    # value, freed before the process group is
+    # the graphs a card run captures (the runs' chains, the convergence
+    # round), kept for the rank's run and freed before its process group
     graphs = {}
-    if cfg.fuse_steps is not None:
-        def run_iters(k: int):
-            u, _ = run_distributed_fused(
-                u_dev, dec, k, cfg.fuse_steps, bc=cfg.bc, impl=cfg.impl,
-                graphs=graphs, **kwargs,
-            )
-            return u
-    else:
-        def run_iters(k: int):
-            return run_distributed(
-                u_dev, dec, k, bc=cfg.bc, impl=cfg.impl, **kwargs
-            )
-
     try:
+        if cfg.tol is not None:
+            def run_conv():
+                return run_distributed_to_convergence(
+                    u_dev, dec, cfg.tol, cfg.iters,
+                    check_every=cfg.check_every, bc=cfg.bc, impl=cfg.impl,
+                    graphs=graphs, **kwargs,
+                )
+
+            with maybe_profile(cfg.profile, device):
+                u_fin, iters_run, res = run_conv()
+                t = time_fn(lambda: run_conv()[0],
+                            warmup=max(cfg.warmup - 1, 0), reps=cfg.reps,
+                            barrier=barrier)
+            record = {
+                "workload": f"{_stencil_tag(cfg)}-dist-conv",
+                **base,
+                **_dispatch_fields(device, [cfg.check_every]),
+                **_convergence_fields(cfg, iters_run, res, t, traffic,
+                                      halo_traffic),
+            }
+            if cfg.verify:
+                got = dec.gather(u_fin)
+                _collective_verdict(
+                    lambda: _verify_convergence(cfg, got, iters_run, u0),
+                    device,
+                )
+            return finish(record, u_fin)
+
+        if cfg.fuse_steps is not None:
+            def run_iters(k: int):
+                u, _ = run_distributed_fused(
+                    u_dev, dec, k, cfg.fuse_steps, bc=cfg.bc,
+                    impl=cfg.impl, graphs=graphs, **kwargs,
+                )
+                return u
+        else:
+            def run_iters(k: int):
+                return run_distributed(
+                    u_dev, dec, k, bc=cfg.bc, impl=cfg.impl, graphs=graphs,
+                    **kwargs
+                )
+
         if cfg.verify:
             v_iters = (_round_up(cfg.verify_iters, cfg.t_steps) if multi
                        else cfg.verify_iters)
@@ -849,11 +852,35 @@ def run_rank(cfg: StencilConfig) -> dict | None:
     record = {
         "workload": f"{_stencil_tag(cfg)}-dist",
         **base,
+        **_dispatch_fields(device, graph_steps(cfg)),
         **({"secs_per_dispatch": per_iter * cfg.fuse_steps}
            if cfg.fuse_steps is not None else {}),
         **_slope_fields(cfg, per_iter, t_lo, traffic, halo_traffic),
     }
     return finish(record, field)
+
+
+def graph_steps(cfg: StencilConfig) -> list[int]:
+    """The steps one graph replay of a card mesh run advances: a fused
+    row's dispatch, else each loop of the slope (``iters`` and ``3 *
+    iters``) cut by ``graphs.graph_chunk`` in trips (a ``multi`` trip is
+    ``t_steps`` steps, a deep-halo one a window)."""
+    from tpu_comm_torch.kernels.graphs import graph_chunk
+
+    if cfg.fuse_steps is not None:
+        return [cfg.fuse_steps]
+    per_trip = cfg.t_steps if cfg.impl == "multi" else (cfg.halo_width or 1)
+    return [graph_chunk(k // per_trip) * per_trip
+            for k in (cfg.iters, 3 * cfg.iters)]
+
+
+def _dispatch_fields(device, steps: list) -> dict:
+    """How a mesh row's loops ran: on the card, replays of CUDA graphs of
+    ``steps`` steps each (the slope's two loops, a fused row's dispatch,
+    a ``--tol`` row's round); on the CPU, eager steps."""
+    if device.type != "cuda":
+        return {"dispatch": "eager"}
+    return {"dispatch": "graph", "graph_steps": steps}
 
 
 def run_distributed_bench(cfg: StencilConfig) -> dict | None:

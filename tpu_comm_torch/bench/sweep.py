@@ -16,7 +16,12 @@ a mesh stencil run), each holding its own buffer of ``size`` bytes. The
 timed loop is a Python loop of ``iters`` chained bodies (each body's
 output is the next one's input), timed by the slope between ``iters``
 and ``3 * iters`` (``bench/timing.py``), with a barrier before every
-clock read, so a repetition times the slowest rank. The stabilized forms
+clock read, so a repetition times the slowest rank. A slope lost to the
+host's noise (at or below zero: at one rank an op is tens to hundreds of
+µs of Python and NCCL a call, and a loaded host can swing more between
+the two loops) is timed again with a loop four times longer, up to
+:data:`SLOPE_RETRIES` times, every rank alike; the row's ``iters`` is
+the loop it was timed with. The stabilized forms
 (``allreduce(x) / n``) keep values bounded across iterations. At world
 size 1 the factors are 0 and ``gbps_bus`` is 0.0: the row still carries
 ``gbps_alg`` (bytes / t).
@@ -34,6 +39,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_comm_torch.bench import SWEEP_OPS as OPS
 from tpu_comm_torch.bench.timing import emit_jsonl, time_loop_per_iter
@@ -141,6 +147,18 @@ class SweepConfig:
         return out
 
 
+#: times a row's lost slope is timed again, each loop 4x the last
+SLOPE_RETRIES = 2
+
+
+def _lost_on_any_rank(lost: bool, device) -> bool:
+    """Whether any rank of the group lost its slope, so that every rank
+    times the same loops."""
+    flag = torch.tensor([int(lost)], device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
+
+
 def sweep_input(rng, count: int, dtype: str) -> torch.Tensor:
     """``count`` standard-normal values of ``dtype`` on the host, the
     values JAX's ``_verify_op`` draws from ``rng``: NumPy has no
@@ -231,11 +249,17 @@ def run_rank(cfg: SweepConfig) -> list[dict] | None:
                 y = body(y)
             return y
 
-        per_iter, t_lo, _ = time_loop_per_iter(
-            run_iters, cfg.iters, warmup=cfg.warmup, reps=cfg.reps,
-            barrier=barrier,
-        )
-        resolved = per_iter > 1e-9
+        iters = cfg.iters
+        for retry in range(SLOPE_RETRIES + 1):
+            per_iter, t_lo, _ = time_loop_per_iter(
+                run_iters, iters, warmup=cfg.warmup, reps=cfg.reps,
+                barrier=barrier,
+            )
+            resolved = per_iter > 1e-9
+            if retry == SLOPE_RETRIES or not _lost_on_any_rank(
+                    not resolved, device):
+                break
+            iters *= 4
         actual_bytes = per_dev_elems * itemsize
         factor = bus_factor(cfg.op, n)
         record = {
@@ -248,7 +272,7 @@ def run_rank(cfg: SweepConfig) -> list[dict] | None:
             "wire_dtype": cfg.wire_dtype,
             "acc_dtype": cfg.acc_dtype,
             "size": actual_bytes,
-            "iters": cfg.iters,
+            "iters": iters,
             "secs_per_iter": per_iter,
             "gbps_bus": (
                 factor * actual_bytes / per_iter / 1e9 if resolved else None

@@ -15,10 +15,35 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+from dataclasses import dataclass
 from pathlib import Path
 
 #: Chrome-trace categories of the events that ran on the device
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+@dataclass(frozen=True)
+class Event:
+    """One complete event of a Chrome trace: name, category, start and
+    duration in microseconds."""
+
+    name: str
+    cat: str
+    ts: float
+    dur: float
+
+    @property
+    def end(self) -> float:
+        return self.ts + self.dur
+
+
+def read_events(path) -> list[Event]:
+    """The complete (``ph: X``) events of the Chrome trace at ``path``."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return [Event(e["name"], e.get("cat", ""), float(e.get("ts", 0.0)),
+                  float(e.get("dur", 0.0)))
+            for e in events if e.get("ph") == "X"]
 
 
 def trace_ops(path, categories=DEVICE_CATEGORIES
@@ -26,13 +51,11 @@ def trace_ops(path, categories=DEVICE_CATEGORIES
     """``name -> (count, total microseconds)`` of the complete events of
     ``categories`` (default: the device's) in the Chrome trace at
     ``path``. A host event's time includes the events it encloses."""
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
     ops: dict[str, tuple[int, float]] = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in categories:
-            count, total = ops.get(e["name"], (0, 0.0))
-            ops[e["name"]] = (count + 1, total + float(e.get("dur", 0.0)))
+    for e in read_events(path):
+        if e.cat in categories:
+            count, total = ops.get(e.name, (0, 0.0))
+            ops[e.name] = (count + 1, total + e.dur)
     return ops
 
 

@@ -20,12 +20,18 @@
 - ``membw``   — the STREAM bandwidth quartet (``bench/membw.py``), with the
   JAX CLI's flags; its arms carry the port's names (``bench/__init__.py``
   maps them).
+- ``overlap`` — C9 verification (``bench/overlap.py``): the exchange's P2P
+  ops a step and, on the card, the compute that ran while an NCCL kernel
+  did, read off a ``torch.profiler`` trace; ``--fuse-steps N`` audits a
+  fused dispatch (one graph launch holding the exchanges).
+- ``pack``    — the face-pack microbenchmark (``bench/packbench.py``): the
+  face-pack kernel against slice copies of the faces, one row an arm.
 - ``info``    — torch and CUDA versions and the device a backend gives.
 
 Flags of the JAX CLI that the port does not have (``--dimsem`` of
 ``stencil``, the obs and resilience flags, ...) are not accepted;
-``membw --dimsem`` is refused with its reason. Errors print
-``error: ...`` and exit 2.
+``membw --dimsem``, ``pack --chunk|--dimsem`` and ``overlap --topology``
+are refused with their reasons. Errors print ``error: ...`` and exit 2.
 """
 
 from __future__ import annotations
@@ -292,6 +298,82 @@ def _cmd_membw(args) -> int:
         try:
             record = run_membw(arm)
         except (ValueError, RuntimeError, AssertionError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(json.dumps(record, sort_keys=True))
+    return 0
+
+
+def _mesh_spec(spec: str | None, dim: int) -> tuple[int, ...] | None:
+    """A ``--mesh`` comma list checked against ``--dim`` (the JAX CLI's
+    ``_parse_mesh``, with its messages); None for no spec."""
+    if not spec:
+        return None
+    mesh = tuple(_parse_ints(spec, "--mesh"))
+    if len(mesh) != dim:
+        raise ValueError(
+            f"--mesh must have {dim} comma-separated entries for --dim "
+            f"{dim}, got {spec!r}"
+        )
+    return mesh
+
+
+def _cmd_overlap(args) -> int:
+    from tpu_comm_torch.bench.overlap import OverlapConfig, run_overlap
+
+    if args.topology:
+        print("error: --topology compiles for a TPU topology ahead of time "
+              "and has no counterpart here: the port reads its overlap "
+              "evidence off a trace of the cards it runs on",
+              file=sys.stderr)
+        return 2
+    try:
+        doc = run_overlap(OverlapConfig(
+            dim=args.dim, size=args.size,
+            mesh=_mesh_spec(args.mesh, args.dim), bc=args.bc,
+            impl=args.impl, fuse_steps=args.fuse_steps,
+            halo_parts=args.halo_parts, halo_width=args.halo_width,
+            backend=args.backend, dist_timeout=args.dist_timeout,
+        ))
+    except (ValueError, NotImplementedError, RuntimeError, OSError,
+            TimeoutError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if doc is not None:  # rank 0
+        print(json.dumps(doc, sort_keys=True))
+    return 0
+
+
+def _cmd_pack(args) -> int:
+    from tpu_comm_torch.bench.packbench import (
+        JAX_PACK_IMPLS,
+        PackConfig,
+        run_pack_bench,
+    )
+
+    if args.chunk is not None or args.dimsem is not None:
+        print("error: --chunk and --dimsem set the Pallas pack kernel's "
+              "y-block and grid semantics on the TPU; the port's kernel "
+              "takes its grid from pack_plan (warps striding over the "
+              "faces), so neither has a counterpart here", file=sys.stderr)
+        return 2
+    if args.impl in JAX_PACK_IMPLS:
+        print(f"error: --impl {args.impl} is the JAX package's name; the "
+              f"port calls this arm {JAX_PACK_IMPLS[args.impl]!r}",
+              file=sys.stderr)
+        return 2
+    impls = ["fused", "kernel"] if args.impl == "both" else [args.impl]
+    for impl in impls:
+        try:
+            record = run_pack_bench(PackConfig(
+                nz=args.nz, ny=args.ny, nx=args.nx, impl=impl,
+                backend=args.backend, dtype=args.dtype, iters=args.iters,
+                warmup=args.warmup, reps=args.reps,
+                verify=not args.no_verify, jsonl=args.jsonl,
+            ))
+        except (ValueError, RuntimeError, AssertionError, OSError) as e:
+            # an arm that fails after another has printed its row leaves
+            # that row standing
             print(f"error: {e}", file=sys.stderr)
             return 2
         print(json.dumps(record, sort_keys=True))
@@ -694,6 +776,80 @@ def build_parser() -> argparse.ArgumentParser:
         "--jsonl", default=None, help="append the result rows to this file"
     )
     p_mb.set_defaults(func=_cmd_membw)
+
+    p_ov = sub.add_parser(
+        "overlap",
+        help="run the distributed step and report C9 overlap evidence "
+        "from a trace (P2P ops a step; on the card the compute that ran "
+        "while an NCCL kernel did)",
+    )
+    _add_backend_arg(p_ov)
+    p_ov.add_argument("--dim", type=int, choices=[1, 2, 3], default=3)
+    p_ov.add_argument("--size", type=int, default=None,
+                      help="global points per dimension (default 64, "
+                      "rounded down to the mesh)")
+    p_ov.add_argument("--mesh", default=None,
+                      help="ranks per axis (default: the world, factored)")
+    p_ov.add_argument("--bc", choices=["dirichlet", "periodic"],
+                      default="dirichlet")
+    p_ov.add_argument(
+        "--impl", default="overlap",
+        help="'torch' (exchange, then the stencil on the padded block; "
+        "JAX 'lax'), 'overlap' (interior update while the exchange is in "
+        "flight, default) or 'partitioned' (the same, faces sent as "
+        "sub-slabs)",
+    )
+    p_ov.add_argument(
+        "--fuse-steps", type=int, default=None, metavar="N",
+        help="audit the fused N-step dispatch instead: on the card one "
+        "graph launch whose replay holds the exchanges' NCCL kernels, no "
+        "host P2P call or synchronisation between steps",
+    )
+    p_ov.add_argument("--halo-parts", type=int, default=None, metavar="K",
+                      help="sub-slabs per face for --impl partitioned")
+    p_ov.add_argument(
+        "--halo-width", type=int, default=None, metavar="K",
+        help="with --fuse-steps: audit the deep-halo window and prove one "
+        "exchange round a K-step window",
+    )
+    p_ov.add_argument(
+        "--topology", default=None, metavar="NAME",
+        help="not available: ahead-of-time compilation for a TPU topology "
+        "has no counterpart on the GPU (refused)",
+    )
+    p_ov.add_argument(
+        "--dist-timeout", type=float, default=600.0, metavar="S",
+        help="seconds the ranks the command starts may take",
+    )
+    p_ov.set_defaults(func=_cmd_overlap)
+
+    p_pk = sub.add_parser(
+        "pack",
+        help="face-pack microbenchmark: the face-pack kernel vs slice "
+        "copies of the faces over a 3D block",
+    )
+    _add_backend_arg(p_pk)
+    p_pk.add_argument("--nz", type=int, default=128)
+    p_pk.add_argument("--ny", type=int, default=128)
+    p_pk.add_argument("--nx", type=int, default=512)
+    p_pk.add_argument(
+        "--impl", default="both",
+        help="'fused' (slice copies; JAX 'lax'), 'kernel' (the face-pack "
+        "kernel; JAX 'pallas') or 'both' (one row an arm, default)",
+    )
+    p_pk.add_argument("--dtype", choices=["float32", "bfloat16"],
+                      default="float32")
+    p_pk.add_argument("--chunk", type=int, default=None,
+                      help="not available: the Pallas kernel's y-block "
+                      "(refused)")
+    p_pk.add_argument("--dimsem", default=None,
+                      help="not available: Mosaic grid semantics (refused)")
+    p_pk.add_argument("--iters", type=int, default=20)
+    p_pk.add_argument("--warmup", type=int, default=2)
+    p_pk.add_argument("--reps", type=int, default=5)
+    p_pk.add_argument("--no-verify", action="store_true")
+    p_pk.add_argument("--jsonl", default=None)
+    p_pk.set_defaults(func=_cmd_pack)
     return parser
 
 

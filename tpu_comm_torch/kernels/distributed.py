@@ -3,9 +3,12 @@
 
 Per iteration each rank packs its faces, posts the sends and receives,
 updates its block, waits, and fixes the cells that needed a ghost. JAX
-runs that as one ``shard_map`` program with a ``fori_loop``; PyTorch runs
-eagerly, so here it is a Python loop on every rank over this rank's own
-block, with ``lax.psum`` an ``all_reduce``.
+runs that as one ``shard_map`` program with a ``fori_loop``, dispatched
+once; here every rank steps its own block, with ``lax.psum`` an
+``all_reduce``. On the card a run is replays of a CUDA graph of its
+steps, exchanges included (:func:`run_distributed`, ``kernels/graphs.py``;
+the convergence loop a graph a round); on the CPU a Python loop of eager
+steps.
 
 Local-update arms (``IMPLS``; the JAX names in brackets):
 
@@ -68,6 +71,11 @@ exchange-free steps. :func:`run_distributed_fused` runs a chain of
 ``fuse_steps``-step dispatches; on the card each is a replay of one CUDA
 graph, captured once, exchange included.
 
+Every arm's step is capturable: it reads no device value on the host,
+branches only on Python values (shapes, mesh coordinates), and its
+exchange posts its NCCL transfers on the current stream and waits on
+them there (``work.wait()`` records a stream wait under capture).
+
 ``stencil="9pt"`` (2D mesh) and ``"27pt"`` (3D mesh) are the box
 stencils, which read the corner and (3D) edge neighbours. Their ghosts
 come from the chained exchange (``halo.start_exchange_transitive``: each
@@ -87,7 +95,8 @@ import torch.distributed as dist
 from tpu_comm_torch.bench import JAX_STENCIL_IMPLS
 from tpu_comm_torch.comm import halo
 from tpu_comm_torch.domain import Decomposition
-from tpu_comm_torch.kernels import BOX, kernels_for, launch_wrappers
+from tpu_comm_torch.kernels import BOX, kernels_for
+from tpu_comm_torch.kernels.graphs import Graph, graph_chunk
 from tpu_comm_torch.kernels.pack import PACK_IMPLS
 from tpu_comm_torch.kernels.padded import (  # noqa: F401
     FROM_PADDED,
@@ -574,16 +583,9 @@ def _chain(step, x: torch.Tensor, y: torch.Tensor, trips: int
     return x
 
 
-def run_distributed(block: torch.Tensor, dec: Decomposition, iters: int,
-                    bc: str = "dirichlet", impl: str = "torch",
-                    **kwargs) -> torch.Tensor:
-    """Run ``iters`` distributed Jacobi steps on this rank's block of the
-    decomposed field; returns the rank's new block. Ping-pong over two
-    buffers allocated once per call; ``block`` itself is only read.
-    ``impl="multi"`` advances ``t_steps`` iterations a step, so ``iters``
-    must be a multiple of it; ``halo_width=K`` (``torch``/``overlap``)
-    runs ``iters / K`` deep-halo windows, so ``iters`` must be a multiple
-    of K."""
+def _run_plan(block: torch.Tensor, dec: Decomposition, iters: int, bc: str,
+              impl: str, kwargs: dict):
+    """The checks of :func:`run_distributed` and its ``(step, trips)``."""
     _check_block(block, dec)
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
@@ -602,9 +604,12 @@ def run_distributed(block: torch.Tensor, dec: Decomposition, iters: int,
                 f"impl='multi'"
             )
         iters //= t
-    step, trips = _step_and_trips(dec.cart, bc, impl, dict(kwargs), iters)
-    if trips == 0:
-        return block.clone()
+    return _step_and_trips(dec.cart, bc, impl, dict(kwargs), iters)
+
+
+def _run_eager(step, block: torch.Tensor, trips: int) -> torch.Tensor:
+    """``trips`` calls of ``step`` launched one by one from the host,
+    ping-pong over two buffers allocated once; ``block`` is only read."""
     bufs = (torch.empty_like(block), torch.empty_like(block))
     src = block
     for i in range(trips):
@@ -612,68 +617,103 @@ def run_distributed(block: torch.Tensor, dec: Decomposition, iters: int,
     return src
 
 
-class GraphChain:
-    """One ``fuse_steps`` chain of a run on the card, captured once in a
-    ``torch.cuda.CUDAGraph`` and replayed a dispatch.
+def run_distributed(block: torch.Tensor, dec: Decomposition, iters: int,
+                    bc: str = "dirichlet", impl: str = "torch",
+                    graphs: dict | None = None, **kwargs) -> torch.Tensor:
+    """Run ``iters`` distributed Jacobi steps on this rank's block of the
+    decomposed field; returns the rank's new block; ``block`` itself is
+    only read. ``impl="multi"`` advances ``t_steps`` iterations a step, so
+    ``iters`` must be a multiple of it; ``halo_width=K``
+    (``torch``/``overlap``) runs ``iters / K`` deep-halo windows, so
+    ``iters`` must be a multiple of K.
 
-    The graph holds the whole chain, the exchanges included, over two
-    static buffers: it reads the field from ``x`` and leaves the result
-    in ``x`` (``y`` is the ping-pong partner). The first dispatch runs
-    the chain eagerly on a side stream: that is the warm-up capture
-    needs (NCCL creates its communicator and channels at the first
-    transfer, the kernels' libraries load), and its result is the first
-    dispatch's. The card is then synchronised and the chain captured;
-    capture records and runs nothing, so every later dispatch is a
-    replay. A capture that fails raises: there is no eager fallback.
+    On the card the run is JAX's one dispatch: its trips (steps,
+    ``multi`` passes or windows) replay a :class:`GraphChain` of
+    :func:`graphs.graph_chunk` trips, exchanges included, captured once
+    (:func:`_replay`, whose ``graphs`` cache the caller keeps across
+    calls). On the CPU the steps run eagerly, one call each, over two
+    buffers; the result is the same."""
+    step, trips = _run_plan(block, dec, iters, bc, impl, kwargs)
+    if trips == 0:
+        return block.clone()
+    if block.device.type != "cuda":
+        return _run_eager(step, block, trips)
+    chunk = graph_chunk(trips)
+    key = ("run", dec.cart, dec.global_shape, block.dtype, block.device,
+           chunk, bc, impl, tuple(sorted(kwargs.items())))
+    return _replay(graphs, key, lambda x, y: GraphChain(step, chunk, x, y),
+                   block, trips // chunk)
 
-    Launch counts: a wrapper counts its kernel once while it is captured,
-    though nothing ran. The capture's counts are taken back and kept in
-    ``captured`` (wrapper -> launches a replay makes), and every replay
-    adds them, so the counters read what the card ran. ``replays``
-    counts the replays.
-    """
 
-    def __init__(self, step, trips: int, block: torch.Tensor):
-        self.step, self.trips = step, trips
-        self.x = torch.empty_like(block)
-        self.y = torch.empty_like(block)
-        self.graph = None
-        self.captured: dict = {}
-        self.replays = 0
+def _run_distributed_eager(block: torch.Tensor, dec: Decomposition,
+                           iters: int, bc: str = "dirichlet",
+                           impl: str = "torch", **kwargs) -> torch.Tensor:
+    """:func:`run_distributed` with every step launched from the host, on
+    any device: the card's eager baseline, which the card check holds the
+    graphed run against (bitwise) and times beside it."""
+    step, trips = _run_plan(block, dec, iters, bc, impl, kwargs)
+    if trips == 0:
+        return block.clone()
+    return _run_eager(step, block, trips)
 
-    def release(self) -> None:
-        """Free the graph; it holds the communicator it captured, so a
-        caller releases it before the process group is destroyed (a
-        group torn down under a live graph has hung at exit)."""
-        if self.graph is not None:
-            torch.cuda.synchronize()
-            self.graph.reset()
-            self.graph = None
 
-    def dispatch(self) -> None:
-        if self.graph is not None:
-            self.graph.replay()
-            for wrapper, n in self.captured.items():
-                wrapper.launches += n
-            self.replays += 1
-            return
-        current = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            _chain(self.step, self.x, self.y, self.trips)
-        current.wait_stream(side)
-        torch.cuda.synchronize()
-        wrappers = launch_wrappers()
-        before = [w.launches for w in wrappers]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            _chain(self.step, self.x, self.y, self.trips)
-        for w, b in zip(wrappers, before):
-            if w.launches != b:
-                self.captured[w] = w.launches - b
-                w.launches = b
-        self.graph = graph
+class GraphChain(Graph):
+    """A chain of ``trips`` calls of ``step`` as one :class:`Graph` over
+    two static buffers: it reads the field from ``x`` and leaves the
+    result in ``x`` (``y`` is the ping-pong partner). ``dispatch()`` runs
+    the chain (eagerly the first time, a replay after)."""
+
+    def __init__(self, step, trips: int, x: torch.Tensor, y: torch.Tensor,
+                 debug: bool = False):
+        self.step, self.trips, self.x, self.y = step, trips, x, y
+        super().__init__(lambda: _chain(step, x, y, trips), debug=debug)
+
+
+def buffers(graphs: dict, block: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two static field buffers of ``block``'s shape, dtype and device
+    that every graph of ``graphs`` shares (one graph runs at a time, and
+    each is seeded before it runs), made at first use."""
+    key = ("buffers", tuple(block.shape), block.dtype, block.device)
+    if key not in graphs:
+        graphs[key] = (torch.empty_like(block), torch.empty_like(block))
+    return graphs[key]
+
+
+def _graph(graphs: dict, key, make, block: torch.Tensor) -> Graph:
+    """The graph cached under ``key``, made by ``make(x, y)`` over the
+    shared buffers (:func:`buffers`) at first use."""
+    if key not in graphs:
+        graphs[key] = make(*buffers(graphs, block))
+    return graphs[key]
+
+
+def _replay(graphs: dict | None, key, make, block: torch.Tensor,
+            n: int) -> torch.Tensor:
+    """``n`` dispatches of the chain cached under ``key`` (made by
+    ``make(x, y)``) from ``block``, which is copied into the chain's
+    buffer once (the seed copy); returns a copy of the result (the next
+    call overwrites the buffer). ``graphs``, a dict the caller keeps for
+    the life of its process group, holds the chains across calls; the
+    caller frees them (:func:`release_graphs`) before the group is
+    destroyed (a graph holds the communicator it captured). With
+    ``graphs=None`` the chain is captured anew and freed on return, and
+    a single dispatch runs eagerly: its capture would never replay."""
+    if graphs is None:
+        if n == 1:
+            chain = make(torch.empty_like(block), torch.empty_like(block))
+            chain.x.copy_(block)
+            return chain.fn()
+        graphs = {}
+        try:
+            return _replay(graphs, key, make, block, n)
+        finally:
+            release_graphs(graphs)
+    chain = _graph(graphs, key, make, block)
+    chain.x.copy_(block)
+    for _ in range(n):
+        chain.dispatch()
+    return chain.x.clone()
 
 
 def run_distributed_fused(
@@ -689,17 +729,10 @@ def run_distributed_fused(
     composes: a dispatch runs ``fuse_steps / K`` windows.
 
     On the card a dispatch is one replay of a CUDA graph of the chain
-    (:class:`GraphChain`), captured once per chain: ``graphs``, a dict
-    the caller keeps for the life of its process group, holds the
-    captured chains across calls (None: capture anew each call, and free
-    the graph on return). A graph holds the communicator it captured:
-    the caller frees its chains (:meth:`GraphChain.release`) before the
-    group is destroyed. On the CPU a dispatch is ``fuse_steps`` eager
-    steps into the same two buffers; the result is the same.
-
-    ``block`` is never written: it is copied once into the chain's
-    buffer (the seed copy), and the result is copied out of it once (a
-    graph's buffer is overwritten by the next call).
+    (:class:`GraphChain`), captured once per chain and cached in
+    ``graphs`` as in :func:`run_distributed` (:func:`_replay`). On the
+    CPU a dispatch is ``fuse_steps`` eager steps into two buffers; the
+    result is the same. ``block`` is never written.
     """
     _check_block(block, dec)
     if fuse_steps < 1:
@@ -735,42 +768,26 @@ def run_distributed_fused(
         for _ in range(n):
             _chain(step, x, y, trips)
         return x, n
-    key = (dec.cart, dec.global_shape, block.dtype, block.device,
+    key = ("fused", dec.cart, dec.global_shape, block.dtype, block.device,
            fuse_steps, bc, impl, tuple(sorted(kwargs.items())))
-    chain = None if graphs is None else graphs.get(key)
-    if chain is None:
-        step, trips = _step_and_trips(dec.cart, bc, impl, dict(kwargs),
-                                      fuse_steps)
-        chain = GraphChain(step, trips, block)
-        if graphs is not None:
-            graphs[key] = chain
-    chain.x.copy_(block)
-    for _ in range(n):
-        chain.dispatch()
-    out = chain.x.clone()
-    if graphs is None:
-        chain.release()
-    return out, n
+    step, trips = _step_and_trips(dec.cart, bc, impl, dict(kwargs),
+                                  fuse_steps)
+    return _replay(graphs, key, lambda x, y: GraphChain(step, trips, x, y),
+                   block, n), n
 
 
 def release_graphs(graphs: dict) -> None:
-    """Free every chain of a :func:`run_distributed_fused` cache."""
-    for chain in graphs.values():
-        chain.release()
+    """Free every graph of a runners' cache (the ``graphs`` dict of
+    :func:`run_distributed`, :func:`run_distributed_fused` and
+    :func:`run_distributed_to_convergence`) and its buffers."""
+    for g in graphs.values():
+        if isinstance(g, Graph):
+            g.release()
     graphs.clear()
 
 
-def run_distributed_to_convergence(
-    block: torch.Tensor, dec: Decomposition, tol: float, max_iters: int,
-    check_every: int = 10, bc: str = "dirichlet", impl: str = "torch",
-    **kwargs,
-) -> tuple[torch.Tensor, int, float]:
-    """Distributed convergence loop: rounds of ``check_every`` steps until
-    the global per-step L2 residual reaches ``tol`` or ``max_iters``
-    steps have run. The residual's square is summed locally in float32
-    and ``all_reduce``d over the mesh, so every rank reads the same value
-    and takes the same stopping decision. Returns ``(block, iters_run,
-    residual)``."""
+def _conv_checks(block: torch.Tensor, dec: Decomposition, check_every: int,
+                 impl: str, kwargs: dict) -> None:
     _check_block(block, dec)
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
@@ -785,6 +802,94 @@ def run_distributed_to_convergence(
             "drop halo_width (the deep-halo window advances "
             "halo_width steps per exchange)"
         )
+
+
+def _residual(new: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The global per-step L2 residual as a device scalar: the square
+    summed locally in float32, ``all_reduce``d over the mesh (every rank
+    reads the same value), its root."""
+    d = (new - src).float()
+    sq = torch.sum(d * d, dtype=torch.float32)
+    if dist.is_initialized():  # a lone rank may run without a group
+        dist.all_reduce(sq)
+    return torch.sqrt(sq)
+
+
+class ConvergenceRound(Graph):
+    """One round of the convergence loop, ``check_every`` steps and the
+    residual of the last, as one :class:`Graph` over static buffers: it
+    reads the field from ``x``, leaves the result in ``x`` and the
+    residual in the device scalar ``res`` (``all_reduce`` included).
+    ``dispatch()`` runs the round."""
+
+    def __init__(self, step, check_every: int, x: torch.Tensor,
+                 y: torch.Tensor):
+        self.x, self.y = x, y
+        self.res = torch.empty((), dtype=torch.float32, device=x.device)
+
+        def round_():
+            src = x
+            for i in range(check_every - 1):
+                src = step(src, out=(y, x)[i % 2])
+            new = step(src, out=(y, x)[(check_every - 1) % 2])
+            self.res.copy_(_residual(new, src))
+            if new is not x:
+                x.copy_(new)
+
+        super().__init__(round_)
+
+
+def run_distributed_to_convergence(
+    block: torch.Tensor, dec: Decomposition, tol: float, max_iters: int,
+    check_every: int = 10, bc: str = "dirichlet", impl: str = "torch",
+    graphs: dict | None = None, **kwargs,
+) -> tuple[torch.Tensor, int, float]:
+    """Distributed convergence loop: rounds of ``check_every`` steps until
+    the global per-step L2 residual reaches ``tol`` or ``max_iters``
+    steps have run. The residual's square is summed locally in float32
+    and ``all_reduce``d over the mesh, so every rank reads the same value
+    and takes the same stopping decision. Returns ``(block, iters_run,
+    residual)``.
+
+    On the card a round is one replay of a :class:`ConvergenceRound`
+    graph (JAX runs the loop as one ``lax.while_loop`` with the ``psum``
+    inside); the host reads the residual once a round to decide. The
+    rounds' values are the eager loop's. ``graphs`` as in
+    :func:`run_distributed`."""
+    _conv_checks(block, dec, check_every, impl, kwargs)
+    if block.device.type != "cuda":
+        return _convergence_eager(block, dec, tol, max_iters, check_every,
+                                  bc, impl, **kwargs)
+    key = ("conv", dec.cart, dec.global_shape, block.dtype, block.device,
+           check_every, bc, impl, tuple(sorted(kwargs.items())))
+    own = graphs is None
+    graphs = {} if own else graphs
+    try:
+        rnd = _graph(graphs, key, lambda x, y: ConvergenceRound(
+            make_local_step(dec.cart, bc, impl, **kwargs), check_every, x, y),
+                     block)
+        rnd.x.copy_(block)
+        it = 0
+        res = float("inf")
+        while it < max_iters and res > tol:
+            rnd.dispatch()
+            res = float(rnd.res)
+            it += check_every
+        return (rnd.x.clone() if it else block.clone()), it, res
+    finally:
+        if own:
+            release_graphs(graphs)
+
+
+def _convergence_eager(
+    block: torch.Tensor, dec: Decomposition, tol: float, max_iters: int,
+    check_every: int = 10, bc: str = "dirichlet", impl: str = "torch",
+    **kwargs,
+) -> tuple[torch.Tensor, int, float]:
+    """:func:`run_distributed_to_convergence` with every step launched
+    from the host and the residual read each round, on any device (the
+    CPU's path, and the card's eager baseline)."""
+    _conv_checks(block, dec, check_every, impl, kwargs)
     step = make_local_step(dec.cart, bc, impl, **kwargs)
     bufs = (torch.empty_like(block), torch.empty_like(block))
     src = block
@@ -797,11 +902,7 @@ def run_distributed_to_convergence(
             n += 1
         new = step(src, out=bufs[n % 2])
         n += 1
-        d = (new - src).float()
-        sq = torch.sum(d * d, dtype=torch.float32)
-        if dist.is_initialized():  # a lone rank may run without a group
-            dist.all_reduce(sq)
-        res = float(torch.sqrt(sq))
+        res = float(_residual(new, src))
         src = new
         it += check_every
     return (src if n else block.clone()), it, res

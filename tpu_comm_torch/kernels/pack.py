@@ -20,6 +20,8 @@ are gathered first:
 - ``pack_faces_3d``    — all six faces by either arm: ``fused`` (views of
   the block; JAX's ``lax`` arm, which XLA fuses into the collective) or
   ``kernel`` (JAX's ``pallas`` arm).
+- ``unpack_ghosts_3d`` — the received faces into a padded block's rim
+  (``pad_block_3d``), slice copies.
 """
 
 from __future__ import annotations
@@ -133,3 +135,31 @@ def pack_faces_3d(u: torch.Tensor, impl: str = "fused"
     if impl == "kernel":
         return (u[0], u[-1], *pack_faces(u))
     raise ValueError(f"unknown pack impl {impl!r} (fused|kernel)")
+
+
+def pad_block_3d(u: torch.Tensor) -> torch.Tensor:
+    """(nz, ny, nx) -> zero-rimmed (nz+2, ny+2, nx+2) around the block
+    (JAX's ``pad_block_3d``)."""
+    _check_block(u)
+    return torch.nn.functional.pad(u, (1, 1, 1, 1, 1, 1))
+
+
+def unpack_ghosts_3d(u_padded: torch.Tensor, faces) -> torch.Tensor:
+    """Scatter received ghost faces, in :data:`FACE_NAMES` order (z faces
+    ``(ny, nx)``, y ``(nz, nx)``, x ``(nz, ny)``), into a copy of the
+    padded block's rim (JAX's ``unpack_ghosts_3d``: the reference's
+    unpack copy kernel, as slice copies). The rim's edges and corners
+    keep what ``u_padded`` held."""
+    if u_padded.dim() != 3:
+        raise ValueError(
+            f"expected a padded 3-D block, got shape {tuple(u_padded.shape)}"
+        )
+    z_lo, z_hi, y_lo, y_hi, x_lo, x_hi = faces
+    p = u_padded.clone()
+    p[0, 1:-1, 1:-1] = z_lo
+    p[-1, 1:-1, 1:-1] = z_hi
+    p[1:-1, 0, 1:-1] = y_lo
+    p[1:-1, -1, 1:-1] = y_hi
+    p[1:-1, 1:-1, 0] = x_lo
+    p[1:-1, 1:-1, -1] = x_hi
+    return p
