@@ -104,7 +104,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
    kernels, a verdict, one graph launch a dispatch holding the
    exchanges); and ``pack --impl both`` at JAX's default block and at
    512^3, verified, timed as graph replays, its kernel arm's launches
-   counted;
+   counted; ``reshard --impl both`` on a mesh of one at the stencils'
+   main-path sizes (1D 2^26, 2D 8192^2, 3D 512^3, float32) and at JAX's
+   default 2D size (1024) in bfloat16: both rows verified bitwise against
+   the oracle, timed as graph replays, each row's
+   ``peak_live_bytes_measured`` printed beside the model's
+   ``peak_live_bytes``, and each arm's CUDA graph of round trips bitwise
+   equal to the same round trips launched eagerly; and ``attention`` at
+   JAX's defaults (seq 4096, 8 heads, head_dim 128) on a ring of one:
+   ring and Ulysses, each causal and not, and ring in bfloat16, verified
+   against the NumPy golden, timed as graph replays, their TFLOP/s
+   printed (neither family runs a kernel of the port: none may launch);
 5. times at the full float32 sizes (CUDA events): kernel, plain version,
    one library call computing the same function (a yardstick the port
    never calls), and for each stencil a device-to-device ``copy_`` and the
@@ -127,7 +137,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    turns (device time queued, and the wrapper's back-to-back call time),
    also on a cold L2 and at narrower rows, and the 3D
    block step on a mesh of one with ``--pack kernel`` and ``--pack
-   fused`` in turns with each other;
+   fused`` in turns with each other; and the reshard round trip of each
+   arm (8192^2, float32) and the float32 ring attention at JAX's
+   defaults, eager beside a CUDA graph of 10 iterations, in turns;
 6. the script's time, the ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, ...}`` line.
 
@@ -384,6 +396,27 @@ OVERLAP_RUNS = [
 ]
 #: the pack bench's blocks in phase 4: JAX's default and the main path's
 PACK_BENCH_SHAPES = [(128, 128, 512), (SIZES[3],) * 3]
+#: phase 4's ``reshard --impl both`` runs on a mesh of one: (the source
+#: and destination mesh, --size, --dtype, --iters): the stencils'
+#: main-path sizes (256/256/512 MiB a buffer in float32) and JAX's
+#: default 2D size in bfloat16, whose 2 MiB round trip (~10 us) needs
+#: loops of 200 and 600 for a slope above the host's noise
+RESHARD_RUNS = [("1", SIZES[1], "float32", 10),
+                ("1,1", SIZES[2], "float32", 10),
+                ("1,1,1", SIZES[3], "float32", 10),
+                ("1,1", 1024, "bfloat16", 200)]
+#: round trips of phase 4's graphed/eager reshard check
+RESHARD_GRAPH_TRIPS = 3
+#: chained calls of phase 4's graphed/eager attention check
+ATTENTION_GRAPH_CALLS = 2
+#: phase 4's ``attention`` runs at JAX's defaults (seq 4096, 8 heads,
+#: head_dim 128): (--impl, --causal, --dtype)
+ATTENTION_RUNS = [("ring", False, "float32"), ("ring", True, "float32"),
+                  ("ulysses", False, "float32"), ("ulysses", True, "float32"),
+                  ("ring", False, "bfloat16")]
+#: iterations a graph of phase 5's eager/graph turns of the 2D reshard
+#: round trip and the float32 ring holds
+GRAPH_TURN_ITERS = 10
 MEMBW_N = 1 << 26
 #: 25 rows of 128: the last chunk of 8 rows is ragged
 MEMBW_RAGGED = 128 * 8 * 3 + 128
@@ -1417,6 +1450,211 @@ def drive_pack_bench(torch, counters) -> dict:
                for r in rows},
             "elapsed_s": time.perf_counter() - T0}})
     return {PACK_KERNEL[0]: launches}
+
+
+def drive_reshard(torch, counters) -> None:
+    """Phase 4, ``reshard --impl both`` on a mesh of one per RESHARD_RUNS
+    (the NCCL group of one: the naive arm's all-gather and the sequential
+    arm's local copy): both rows verified (bitwise against the oracle),
+    timed as graph replays, no kernel of the port launched; each row's
+    measured peak live bytes printed beside the model's."""
+    for mesh, size, dtype, iters in RESHARD_RUNS:
+        argv = ["reshard", "--src-mesh", mesh, "--dst-mesh", mesh,
+                "--size", str(size), "--dtype", dtype, "--impl", "both",
+                "--iters", str(iters)]
+        rows, counts = _run_counted(counters, argv)
+        what = " ".join(argv)
+        if [r.get("impl") for r in rows] != ["naive", "sequential"]:
+            fail(f"{what}: rows {[r.get('impl') for r in rows]}")
+        for r in rows:
+            _want_row(what, r, {
+                "platform": "cuda", "verified": True, "dispatch": "graph",
+                "workload": "reshard", "dtype": dtype, "moved_bytes": 0,
+                "size": [size] * len(mesh.split(",")),
+                # the bench times a lost slope again with longer loops; a
+                # row still unresolved has no time to print
+                "below_timing_resolution": False})
+            if not isinstance(r.get("peak_live_bytes_measured"), int):
+                fail(f"{what}: no measured peak live bytes in {r}")
+            emit({"reshard": {
+                "impl": r["impl"], "mesh": r["src_mesh"], "size": r["size"],
+                "dtype": dtype,
+                "peak_live_bytes": r["peak_live_bytes"],
+                "peak_live_bytes_measured": r["peak_live_bytes_measured"],
+                **{k: r[k] for k in ("secs_per_reshard", "reshard_steps",
+                                     "graph_steps", "iters")},
+                # rows timed again with a longer loop (a lost slope)
+                "retimed": r["iters"] != iters,
+                "elapsed_s": time.perf_counter() - T0}})
+        _want_launched(what, counts, set())
+
+
+def check_reshard_graph(torch) -> None:
+    """Phase 4, each reshard arm at each RESHARD_RUNS configuration:
+    RESHARD_GRAPH_TRIPS round trips replayed from a CUDA graph
+    (``GraphLoop``, as the bench's timed loop runs them) bitwise equal to
+    the same round trips launched eagerly, and to the block (a mesh of
+    one moves nothing)."""
+    from tpu_comm_torch.bench.reshard import _host_field
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.comm import reshard as rs
+    from tpu_comm_torch.kernels.graphs import GraphLoop
+    from tpu_comm_torch.kernels.tiling import DTYPES as TORCH_DTYPES
+
+    n = RESHARD_GRAPH_TRIPS
+    with launch.process_group("nccl"):
+        for mesh, size, dtype, _ in RESHARD_RUNS:
+            m = tuple(int(a) for a in mesh.split(","))
+            gshape = (size,) * len(m)
+            dt = TORCH_DTYPES[dtype]
+            plan = rs.plan_reshard(gshape, m, m, dt.itemsize)
+            x = _host_field(gshape, dt).cuda()
+            for arm in rs.ARMS:
+                def trip(u, arm=arm):
+                    return rs.reshard_block(
+                        rs.reshard_block(u, plan, arm), plan, arm)
+
+                eager = x
+                for _ in range(n):
+                    eager = trip(eager)
+                loop = GraphLoop(trip, x)
+                try:
+                    loop.run(n)  # eager on a side stream, then the capture
+                    same = torch.equal(loop.run(n), eager)  # a replay
+                    replays = loop.graphs[n].replays
+                finally:
+                    loop.release()
+                what = f"graphed reshard {arm} {mesh} {size} {dtype}"
+                if replays != 1 or not same or not torch.equal(eager, x):
+                    fail(f"{what}: graph equal to eager {same}, eager "
+                         f"equal to the block {torch.equal(eager, x)}, "
+                         f"{replays} replays")
+                del eager
+            emit({"reshard_graph": {"mesh": list(m), "size": size,
+                                    "dtype": dtype, "round_trips": n,
+                                    "arms": list(rs.ARMS), "bitwise": True,
+                                    "elapsed_s": time.perf_counter() - T0}})
+            del x
+            torch.cuda.empty_cache()
+
+
+def drive_attention(torch, counters) -> None:
+    """Phase 4, ``attention`` at JAX's defaults on a ring of one rank per
+    ATTENTION_RUNS (NCCL group of one: the ring makes no hop, Ulysses'
+    all-to-all moves nothing): every row verified against the NumPy
+    golden, timed as graph replays, no kernel of the port launched; its
+    TFLOP/s printed."""
+    for impl, causal, dtype in ATTENTION_RUNS:
+        argv = ["attention", "--impl", impl, "--dtype", dtype,
+                "--n-devices", "1", *(["--causal"] if causal else [])]
+        rows, counts = _run_counted(counters, argv)
+        what = " ".join(argv)
+        if len(rows) != 1:
+            fail(f"{what}: {len(rows)} rows")
+        (r,) = rows
+        _want_row(what, r, {
+            "platform": "cuda", "verified": True, "dispatch": "graph",
+            "workload": f"attention-{impl}", "mesh": [1], "causal": causal,
+            "dtype": dtype, "size": [4096, 8, 128]})
+        if not isinstance(r.get("tflops"), float):
+            fail(f"{what}: tflops {r.get('tflops')}")
+        _want_launched(what, counts, set())
+        emit({"attention": {
+            "impl": impl, "causal": causal, "dtype": dtype,
+            **{k: r[k] for k in ("secs_per_iter", "tflops", "graph_steps",
+                                 "ring_bytes_per_chip_per_iter")},
+            "elapsed_s": time.perf_counter() - T0}})
+
+
+def check_attention_graph(torch) -> None:
+    """Phase 4, the float32 ring and Ulysses at JAX's defaults (seq 4096,
+    8 heads, head_dim 128): ATTENTION_GRAPH_CALLS chained calls replayed
+    from a CUDA graph (``GraphLoop``, as the bench's timed loop runs
+    them) bitwise equal to the same calls launched eagerly."""
+    from tpu_comm_torch.bench.attention import AttnConfig, attention_inputs
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.extras import ring_attention as ra
+    from tpu_comm_torch.kernels.graphs import GraphLoop
+
+    n = ATTENTION_GRAPH_CALLS
+    with launch.process_group("nccl"):
+        q, k, v = (t.cuda() for t in attention_inputs(AttnConfig()))
+        for fn in (ra.ring_attention, ra.ulysses_attention):
+            eager = q
+            for _ in range(n):
+                eager = fn(eager, k, v)
+            loop = GraphLoop(lambda u, fn=fn: fn(u, k, v), q)
+            try:
+                loop.run(n)  # eager on a side stream, then the capture
+                same = torch.equal(loop.run(n), eager)  # a replay
+                replays = loop.graphs[n].replays
+            finally:
+                loop.release()
+            if replays != 1 or not same:
+                fail(f"graphed {fn.__name__} 4096x8x128 float32: graph "
+                     f"equal to eager {same}, {replays} replays")
+            emit({"attention_graph": {"impl": fn.__name__, "calls": n,
+                                      "bitwise": True,
+                                      "elapsed_s": time.perf_counter() - T0}})
+            del eager
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def measure_graph_turns(torch) -> list:
+    """Phase 5, the reshard round trip of each arm on the 8192^2 float32
+    mesh of one and the float32 ring attention at JAX's defaults: eager,
+    one call an iteration, beside the same iteration replayed from a CUDA
+    graph of GRAPH_TURN_ITERS, in turns (:func:`in_turns`, ms an
+    iteration)."""
+    from tpu_comm_torch.bench.attention import AttnConfig, attention_inputs
+    from tpu_comm_torch.bench.reshard import _host_field
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.comm import reshard as rs
+    from tpu_comm_torch.extras import ring_attention as ra
+    from tpu_comm_torch.kernels.graphs import GraphLoop
+
+    n = GRAPH_TURN_ITERS
+    rows = []
+
+    def turns(what: str, body, x) -> None:
+        loop = GraphLoop(body, x)
+        try:
+            loop.run(n)  # eager on a side stream, then the capture
+            got = in_turns(torch, {
+                "eager": lambda: body(x),
+                "graph": loop.graphs[n].dispatch,
+            }, timer=lambda label, fn: time_ms(
+                torch, fn, n if label == "eager" else DIST_GRAPH_REPS))
+        finally:
+            loop.release()
+        graph = {k: v / n if k != "runs" else [r / n for r in v]
+                 for k, v in got["graph"].items()}
+        rows.append({"what": what, "eager_ms": got["eager"]["ms"],
+                     "eager_spread_ms": got["eager"]["spread_ms"],
+                     "graph_ms": graph["ms"],
+                     "graph_spread_ms": graph["spread_ms"],
+                     "graph_iters": n, "rounds": MEMBW_ROUNDS})
+        emit({"graph_turns": {**rows[-1],
+                              "elapsed_s": time.perf_counter() - T0}})
+
+    with launch.process_group("nccl"):
+        gshape = (SIZES[2],) * 2
+        x = _host_field(gshape, torch.float32).cuda()
+        plan = rs.plan_reshard(gshape, (1, 1), (1, 1), 4)
+        for arm in rs.ARMS:
+            def trip(u, arm=arm):
+                return rs.reshard_block(rs.reshard_block(u, plan, arm),
+                                        plan, arm)
+            turns(f"reshard {arm} round trip 1,1 {SIZES[2]} float32", trip,
+                  x)
+        del x
+        q, k, v = (t.cuda() for t in attention_inputs(AttnConfig()))
+        turns("attention ring 4096x8x128 float32",
+              lambda u: ra.ring_attention(u, k, v), q)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 def library_call(torch, key: int):
@@ -2841,6 +3079,10 @@ def main() -> int:
     drive_overlap(torch, counters)
     for name, n in drive_pack_bench(torch, counters).items():
         mesh_launches[name] += n
+    drive_reshard(torch, counters)
+    check_reshard_graph(torch)
+    drive_attention(torch, counters)
+    check_attention_graph(torch)
     times = {arm: measure_times(torch, mods, arm) for arm in KERNELS}
     multi_times = measure_multi(torch, mods)
     ghost_times = measure_ghost(torch, mods)
@@ -2849,6 +3091,7 @@ def main() -> int:
     membw_times = measure_membw(torch, mods)
     measure_pack_steps(torch, mods)
     measure_dist_steps(torch, mods)
+    measure_graph_turns(torch)
 
     print(smi, flush=True)
     stencil_rows = []

@@ -1279,3 +1279,116 @@ def test_overlap_report_on_the_card(card, impl, opts, sends):
             assert deep["exchange_in_graph"] is True, deep
             assert deep["nccl_nodes"] == 2 * deep["nccl_nodes_per_trip"] == (
                 2 * deep["nccl_nodes_per_step_reference"]), deep
+
+
+#: meshes of one for the reshard arms on the card: (mesh, global shape)
+RESHARD_CARD = [((1,), (1 << 20,)), ((1, 1), (1024, 1024)),
+                ((1, 1, 1), (64, 64, 64))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("mesh,gshape", RESHARD_CARD)
+def test_reshard_arms_at_world_size_1_graphed_and_eager(card, mesh, gshape,
+                                                        dtype):
+    """Both arms through NCCL at world size 1: the forward reshard is the
+    block itself, bitwise, and 5 round trips replayed from a CUDA graph
+    equal 5 eager round trips, bitwise."""
+    from tpu_comm_torch.bench.reshard import _host_field
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.comm import reshard as rs
+    from tpu_comm_torch.kernels.graphs import GraphLoop
+    from tpu_comm_torch.kernels.tiling import DTYPES
+
+    dt = DTYPES[dtype]
+    plan = rs.plan_reshard(gshape, mesh, mesh, dt.itemsize)
+    x = _host_field(gshape, dt).to(card)
+    with launch.process_group("nccl"):
+        for arm in rs.ARMS:
+            out = rs.reshard_block(x, plan, arm)
+            assert out.dtype == dt and torch.equal(out, x), arm
+
+            def trip(u, arm=arm):
+                return rs.reshard_block(rs.reshard_block(u, plan, arm),
+                                        plan, arm)
+
+            eager = x
+            for _ in range(5):
+                eager = trip(eager)
+            loop = GraphLoop(trip, x)
+            try:
+                loop.run(5)
+                got = loop.run(5).clone()  # replays of the captured graph
+                assert loop.graphs[5].replays == 1
+            finally:
+                loop.release()
+            assert torch.equal(got, eager) and torch.equal(got, x), arm
+
+
+def test_reshard_bench_rows_on_the_card(card):
+    from tpu_comm_torch.bench.reshard import ReshardConfig, run_reshard_bench
+
+    rows = run_reshard_bench(ReshardConfig(
+        src_mesh=(1, 1), dst_mesh=(1, 1), size=1024, iters=4, warmup=1,
+        reps=2))
+    assert [r["impl"] for r in rows] == ["naive", "sequential"]
+    for r in rows:
+        assert (r["platform"], r["verified"], r["dispatch"]) == (
+            "cuda", True, "graph")
+        assert r["moved_bytes"] == 0 and r["gbps_eff"] is None
+        assert r["peak_live_bytes_measured"] >= 0
+
+
+def test_reshard_refuses_more_ranks_than_cards(card, capsys):
+    from tpu_comm_torch import cli
+
+    n = torch.cuda.device_count() + 1
+    assert cli.main(["reshard", "--src-mesh", str(n), "--dst-mesh", "1",
+                     "--size", str(4 * n)]) == 2
+    err = capsys.readouterr().err
+    assert f"union world of {n} ranks" in err
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 5e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_attention_at_world_size_1_against_the_golden(card, impl, causal,
+                                                      dtype, tol):
+    """Both arms through NCCL at world size 1 against
+    ``reference_attention`` on the same rounded inputs, eager and
+    replayed from a CUDA graph (bitwise equal to each other)."""
+    import numpy as np
+
+    from tpu_comm_torch.bench.attention import AttnConfig, attention_inputs
+    from tpu_comm_torch.comm import launch
+    from tpu_comm_torch.extras import ring_attention as ra
+    from tpu_comm_torch.kernels.graphs import GraphLoop
+
+    cfg = AttnConfig(seq=512, heads=8, head_dim=64, dtype=dtype)
+    q, k, v = (x.to(card) for x in attention_inputs(cfg))
+    fn = ra.ring_attention if impl == "ring" else ra.ulysses_attention
+    with launch.process_group("nccl"):
+        out = fn(q, k, v, causal=causal)
+        want = ra.reference_attention(
+            *(x.float().cpu().numpy() for x in (q, k, v)), causal=causal)
+        np.testing.assert_allclose(out.float().cpu().numpy(), want,
+                                   atol=tol, rtol=tol)
+        loop = GraphLoop(lambda x: fn(x, k, v, causal=causal), q)
+        try:
+            loop.run(2)
+            got = loop.run(2).clone()
+        finally:
+            loop.release()
+        eager = fn(fn(q, k, v, causal=causal), k, v, causal=causal)
+        assert torch.equal(got, eager)
+
+
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_attention_bench_rows_on_the_card(card, impl):
+    from tpu_comm_torch.bench.attention import AttnConfig, run_attention_bench
+
+    row = run_attention_bench(AttnConfig(
+        seq=1024, heads=8, head_dim=64, impl=impl, n_devices=1, iters=4,
+        warmup=1, reps=2))
+    assert (row["platform"], row["verified"], row["dispatch"]) == (
+        "cuda", True, "graph")
+    assert row["mesh"] == [1] and row["tflops"] > 0

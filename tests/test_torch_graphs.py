@@ -9,7 +9,9 @@
 - the runners' cache: chains over one pair of buffers, and a run without
   a cache captures only what it replays;
 - the NCCL nodes of a captured graph, read from its DOT dump;
-- the rows: how a mesh row ran (``dispatch``, ``graph_steps``).
+- the rows: how a mesh row ran (``dispatch``, ``graph_steps``);
+- a bench's timed loop (``GraphLoop``): eager on the CPU, on the card a
+  graph a chunk length, kept across runs.
 
 Graph against eager on the card, bitwise, is in ``test_torch_cuda.py``
 and ``chip_smoke.py``; the CPU path is held against JAX, with a cache
@@ -252,3 +254,38 @@ def test_dispatch_fields_say_how_a_row_ran():
         "dispatch": "eager"}
     assert pstencil._dispatch_fields(torch.device("cuda", 0), [20, 60]) == {
         "dispatch": "graph", "graph_steps": [20, 60]}
+
+
+# ------------------------------------------------- a bench's timed loop
+
+def test_graph_loop_on_the_cpu_chains_the_calls_eagerly():
+    x0 = torch.zeros(3)
+    loop = pgraphs.GraphLoop(lambda x: x + 1, x0)
+    assert loop.dispatch == "eager"
+    for k in (1, 5, 130):
+        assert torch.equal(loop.run(k), torch.full((3,), float(k)))
+    assert torch.equal(x0, torch.zeros(3)) and loop.graphs == {}
+
+
+def test_graph_loop_keeps_a_graph_a_chunk_length(fake_cuda, monkeypatch):
+    """On the card a run of k calls replays the graph of graph_chunk(k)
+    calls k / chunk times, from the buffer seeded with x0; one graph a
+    chunk length, kept across runs until released."""
+    monkeypatch.setattr(pgraphs.GraphLoop, "dispatch", "graph")
+    calls = []
+
+    def body(x):
+        calls.append(1)
+        return x + 1
+
+    loop = pgraphs.GraphLoop(body, torch.zeros(3))
+    loop.run(10)
+    loop.run(30)
+    loop.run(130)
+    assert sorted(loop.graphs) == [10, 26, 30]
+    assert loop.graphs[26].replays == 130 // 26 - 1
+    before = len(calls)
+    loop.run(30)  # replays only: the stand-in graph runs nothing
+    assert len(calls) == before and loop.graphs[30].replays == 1
+    loop.release()
+    assert loop.graphs == {} and loop.buf is None

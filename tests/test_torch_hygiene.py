@@ -15,10 +15,12 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "tpu_comm_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
-    # what the mesh, collective, sweep, halo and overlap tests run on
-    # their spawned ranks, and the clock those ranks install
+    # what the mesh, collective, sweep, reshard, attention, halo and
+    # overlap tests run on their spawned ranks, and the clock those ranks
+    # install
     ROOT / "tests" / "torch_mesh_cases.py",
     ROOT / "tests" / "torch_coll_cases.py",
+    ROOT / "tests" / "torch_reshard_cases.py",
     ROOT / "tests" / "torch_halo_cases.py",
     ROOT / "tests" / "torch_overlap_cases.py",
     ROOT / "tests" / "torch_fake_clock.py",
@@ -79,8 +81,13 @@ def test_the_walk_sees_the_whole_package():
         "tpu_comm_torch/bench/overlap.py",
         "tpu_comm_torch/bench/packbench.py",
         "tpu_comm_torch/kernels/graphs.py",
+        "tpu_comm_torch/comm/reshard.py",
+        "tpu_comm_torch/bench/reshard.py",
+        "tpu_comm_torch/extras/ring_attention.py",
+        "tpu_comm_torch/bench/attention.py",
         "tests/torch_mesh_cases.py",
         "tests/torch_coll_cases.py",
+        "tests/torch_reshard_cases.py",
         "tests/torch_halo_cases.py",
         "tests/torch_overlap_cases.py",
         "tests/torch_fake_clock.py",

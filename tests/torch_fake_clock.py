@@ -30,9 +30,11 @@ PER_ITER_S = 2.0 ** -10
 READ_S = 2.0 ** -7
 #: the modules that time a loop with ``time_loop_per_iter``
 TIMED_MODULES = (
+    "tpu_comm_torch.bench.attention",
     "tpu_comm_torch.bench.halosweep",
     "tpu_comm_torch.bench.membw",
     "tpu_comm_torch.bench.packbench",
+    "tpu_comm_torch.bench.reshard",
     "tpu_comm_torch.bench.stencil",
     "tpu_comm_torch.bench.sweep",
 )

@@ -1,9 +1,10 @@
 """Benchmark drivers of the port (``tpu_comm/bench`` counterparts).
 
-The collective sweep's op names (the port's copy of
-``tpu_comm/bench/__init__.py`` ``SWEEP_OPS``; none names a Pallas arm,
-so they keep the JAX package's names). The STREAM quartet's names (the
-port's copies of ``tpu_comm/bench/__init__.py`` ``MEMBW_OPS`` and of
+The collective sweep's op names and the reshard arms (the port's copies
+of ``tpu_comm/bench/__init__.py`` ``SWEEP_OPS`` and ``RESHARD_IMPLS``;
+none names a Pallas arm, so they keep the JAX package's names). The
+STREAM quartet's names (the port's copies of
+``tpu_comm/bench/__init__.py`` ``MEMBW_OPS`` and of
 ``tpu_comm/bench/membw.py`` ``TRAFFIC``) and the port's membw arm names.
 The JAX package names the arms after Pallas; the port names them after
 what they run:
@@ -53,6 +54,9 @@ SWEEP_OPS = (
     "bcast-tree",       # explicit binomial tree
     "all-to-all",       # full transpose (the Ulysses/SP resharding primitive)
 )
+#: ``reshard``'s arms (``comm/reshard.py`` ``ARMS``, then "both"; the
+#: JAX package's names: neither names a Pallas arm)
+RESHARD_IMPLS = ("naive", "sequential", "both")
 MEMBW_OPS = ("copy", "scale", "add", "triad")
 #: element visits (reads + writes) per iteration, STREAM convention
 TRAFFIC = {"copy": 2, "scale": 2, "add": 3, "triad": 3}

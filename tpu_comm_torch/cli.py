@@ -17,6 +17,11 @@
 - ``sweep``   — the collective bandwidth sweep (``bench/sweep.py``) over
   ``torch.distributed``, one rank a device, with the JAX CLI's flags and
   op names.
+- ``reshard`` — the array-redistribution benchmark (``bench/reshard.py``):
+  naive all-gather against the sequential point-to-point decomposition,
+  over the union world of two mesh factorizations.
+- ``attention`` — ring and Ulysses sequence-parallel attention
+  (``bench/attention.py``) over a 1D ring of ranks.
 - ``membw``   — the STREAM bandwidth quartet (``bench/membw.py``), with the
   JAX CLI's flags; its arms carry the port's names (``bench/__init__.py``
   maps them).
@@ -40,7 +45,7 @@ import argparse
 import json
 import sys
 
-from tpu_comm_torch.bench import MEMBW_OPS, SWEEP_OPS
+from tpu_comm_torch.bench import MEMBW_OPS, RESHARD_IMPLS, SWEEP_OPS
 
 
 def _add_backend_arg(p: argparse.ArgumentParser) -> None:
@@ -272,6 +277,50 @@ def _cmd_sweep(args) -> int:
     return 0
 
 
+def _cmd_reshard(args) -> int:
+    from tpu_comm_torch.bench.reshard import ReshardConfig, run_reshard_bench
+
+    try:
+        src_mesh = _parse_ints(args.src_mesh, "--src-mesh")
+        dst_mesh = _parse_ints(args.dst_mesh, "--dst-mesh")
+        if not src_mesh or not dst_mesh:
+            raise ValueError("--src-mesh and --dst-mesh must be non-empty")
+        records = run_reshard_bench(ReshardConfig(
+            src_mesh=tuple(src_mesh), dst_mesh=tuple(dst_mesh),
+            size=args.size, dtype=args.dtype, impl=args.impl,
+            backend=args.backend, iters=args.iters, warmup=args.warmup,
+            reps=args.reps, verify=not args.no_verify, jsonl=args.jsonl,
+        ))
+    except (ValueError, RuntimeError, AssertionError, OSError,
+            TimeoutError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    # under a launcher every rank runs this; rank 0 alone has the rows
+    for r in records or ():
+        print(json.dumps(r, sort_keys=True))
+    return 0
+
+
+def _cmd_attention(args) -> int:
+    from tpu_comm_torch.bench.attention import AttnConfig, run_attention_bench
+
+    try:
+        record = run_attention_bench(AttnConfig(
+            seq=args.seq, heads=args.heads, head_dim=args.head_dim,
+            impl=args.impl, causal=args.causal, dtype=args.dtype,
+            backend=args.backend, n_devices=args.n_devices,
+            iters=args.iters, warmup=args.warmup, reps=args.reps,
+            verify=not args.no_verify, jsonl=args.jsonl,
+        ))
+    except (ValueError, RuntimeError, AssertionError, OSError,
+            TimeoutError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if record is not None:  # rank 0
+        print(json.dumps(record, sort_keys=True))
+    return 0
+
+
 def _cmd_membw(args) -> int:
     from tpu_comm_torch.bench.membw import (
         MembwConfig,
@@ -406,7 +455,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m tpu_comm_torch",
         description="PyTorch/CUDA port of tpu_comm: the stencil, halo, "
-        "collective sweep and STREAM bandwidth drivers",
+        "collective sweep, reshard, attention and STREAM bandwidth drivers",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -723,6 +772,77 @@ def build_parser() -> argparse.ArgumentParser:
         "killed and the command exits non-zero",
     )
     p_sw.set_defaults(func=_cmd_sweep)
+
+    p_rs = sub.add_parser(
+        "reshard",
+        help="mesh->mesh array-redistribution benchmark: naive "
+        "all-gather then re-slice against the sequential point-to-point "
+        "decomposition, with modeled bytes, a bitwise NumPy oracle and "
+        "peak live memory next to GB/s",
+    )
+    _add_backend_arg(p_rs)
+    p_rs.add_argument(
+        "--src-mesh", required=True, metavar="A,B,...",
+        help="source mesh factorization, comma-separated (size-1 axes for "
+        "lower-dim meshes, e.g. 8,1); the global array must divide by "
+        "every axis",
+    )
+    p_rs.add_argument(
+        "--dst-mesh", required=True, metavar="A,B,...",
+        help="destination mesh factorization, as many axes as --src-mesh; "
+        "the rank counts may differ (the run spans the union world, one "
+        "rank a device: on the card as many GPUs)",
+    )
+    p_rs.add_argument(
+        "--size", type=int, default=None,
+        help="global points per dimension (default: 2^20 for 1-axis "
+        "meshes, 1024 for 2, 128 for 3); must divide by both meshes' "
+        "axis sizes",
+    )
+    p_rs.add_argument(
+        "--dtype", choices=["float32", "bfloat16", "float16"],
+        default="float32",
+    )
+    p_rs.add_argument(
+        "--impl", choices=list(RESHARD_IMPLS), default="both",
+        help="redistribution arm; 'both' (default) measures naive then "
+        "sequential",
+    )
+    p_rs.add_argument("--iters", type=int, default=10,
+                      help="round trips (src->dst->src) per timed run; "
+                      "one iteration is two reshards")
+    p_rs.add_argument("--warmup", type=int, default=2)
+    p_rs.add_argument("--reps", type=int, default=5)
+    p_rs.add_argument("--no-verify", action="store_true")
+    p_rs.add_argument("--jsonl", default=None)
+    p_rs.set_defaults(func=_cmd_reshard)
+
+    p_at = sub.add_parser(
+        "attention",
+        help="long-context sequence-parallel attention benchmark (ring "
+        "point-to-point pipeline / Ulysses all-to-all)",
+    )
+    _add_backend_arg(p_at)
+    p_at.add_argument("--seq", type=int, default=4096)
+    p_at.add_argument("--heads", type=int, default=8)
+    p_at.add_argument("--head-dim", type=int, default=128)
+    p_at.add_argument("--impl", choices=["ring", "ulysses"], default="ring")
+    p_at.add_argument("--causal", action="store_true")
+    p_at.add_argument("--dtype", choices=["float32", "bfloat16"],
+                      default="float32")
+    p_at.add_argument(
+        "--n-devices", type=int, default=None,
+        help="ranks, one process and one device each (default: the "
+        "launcher's world, else every CUDA device on the card, else 1 on "
+        "the CPU); without RANK/WORLD_SIZE in the environment the command "
+        "starts its own ranks",
+    )
+    p_at.add_argument("--iters", type=int, default=10)
+    p_at.add_argument("--warmup", type=int, default=2)
+    p_at.add_argument("--reps", type=int, default=5)
+    p_at.add_argument("--no-verify", action="store_true")
+    p_at.add_argument("--jsonl", default=None)
+    p_at.set_defaults(func=_cmd_attention)
 
     p_mb = sub.add_parser(
         "membw",

@@ -44,10 +44,13 @@ def _size_rank(group) -> tuple[int, int]:
     return dist.get_world_size(group), dist.get_rank(group)
 
 
-def ppermute(x: torch.Tensor, perm, group=None) -> torch.Tensor:
-    """``lax.ppermute``: send ``x`` along every (src, dst) pair of
-    ``perm`` (group ranks) in one ``batch_isend_irecv``; returns what
-    this rank received, zeros where no pair sends to it.
+def ppermute_start(xs, perm, group=None):
+    """Post ``lax.ppermute`` of every tensor of ``xs`` along every (src,
+    dst) pair of ``perm`` (group ranks) in one ``batch_isend_irecv``;
+    returns ``(outs, works)``: what this rank receives of each tensor
+    (zeros where no pair sends to it), filled once every work of
+    ``works`` is waited on. Posting the next transfer before a compute
+    and waiting after it is the overlap JAX leaves to XLA.
 
     A pair from a rank to itself is a copy under gloo, which has no pair
     to its own rank; NCCL takes it inside the batch, as the periodic
@@ -57,21 +60,30 @@ def ppermute(x: torch.Tensor, perm, group=None) -> torch.Tensor:
     srcs = [s for s, d in perm if d == rank]
     if len(dsts) > 1 or len(srcs) > 1:
         raise ValueError(f"perm {perm} sends or receives twice at rank {rank}")
-    x = x.contiguous()
-    out = torch.zeros_like(x) if not srcs else torch.empty_like(x)
+    xs = [x.contiguous() for x in xs]
+    outs = [torch.zeros_like(x) if not srcs else torch.empty_like(x)
+            for x in xs]
     if dsts == [rank] and dist.get_backend(group) != "nccl":
-        return out.copy_(x)
+        return [out.copy_(x) for out, x in zip(outs, xs)], []
     ops = []
     # group ranks -> the global ranks a P2P op names
     peer = (lambda r: r) if group is None else (
         lambda r: dist.get_global_rank(group, r))
-    if dsts:
-        ops.append(dist.P2POp(dist.isend, x, peer(dsts[0]), group))
-    if srcs:
-        ops.append(dist.P2POp(dist.irecv, out, peer(srcs[0]), group))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+    for x, out in zip(xs, outs):
+        if dsts:
+            ops.append(dist.P2POp(dist.isend, x, peer(dsts[0]), group))
+        if srcs:
+            ops.append(dist.P2POp(dist.irecv, out, peer(srcs[0]), group))
+    return outs, dist.batch_isend_irecv(ops) if ops else []
+
+
+def ppermute(x: torch.Tensor, perm, group=None) -> torch.Tensor:
+    """``lax.ppermute``: send ``x`` along every (src, dst) pair of
+    ``perm`` (group ranks); returns what this rank received, zeros where
+    no pair sends to it (:func:`ppermute_start`, waited on)."""
+    (out,), works = ppermute_start([x], perm, group)
+    for work in works:
+        work.wait()
     return out
 
 

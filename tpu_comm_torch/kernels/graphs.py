@@ -149,3 +149,54 @@ class Graph:
             torch.cuda.synchronize()
             self.graph.reset()
             self.graph = None
+
+
+class GraphLoop:
+    """``k`` chained calls ``x = body(x)`` from ``x0`` (``x0`` only read),
+    as a bench's timed loop runs them: JAX's ``fori_loop``, one dispatch.
+    On the card each call of :meth:`run` replays a :class:`Graph` of
+    :func:`graph_chunk` calls ``k / chunk`` times over one static buffer,
+    seeded from ``x0`` (a fixed cost, which a slope cancels); the graphs
+    are captured at first use, one a chunk length, and kept until
+    :meth:`release`. On the CPU the calls run eagerly. Returns the last
+    call's result (on the card the static buffer: read it before the next
+    run)."""
+
+    def __init__(self, body, x0: torch.Tensor):
+        self.body, self.x0 = body, x0
+        self.graphs: dict[int, Graph] = {}
+        self.buf = None
+
+    @property
+    def dispatch(self) -> str:
+        """How :meth:`run` dispatches: ``graph`` or ``eager``."""
+        return "graph" if self.x0.device.type == "cuda" else "eager"
+
+    def run(self, k: int) -> torch.Tensor:
+        if self.dispatch == "eager":
+            x = self.x0
+            for _ in range(k):
+                x = self.body(x)
+            return x
+        chunk = graph_chunk(k)
+        if self.buf is None:
+            self.buf = torch.empty_like(self.x0)
+        if chunk not in self.graphs:
+            def chain(chunk=chunk):
+                x = self.buf
+                for _ in range(chunk):
+                    x = self.body(x)
+                self.buf.copy_(x)
+            self.graphs[chunk] = Graph(chain)
+        self.buf.copy_(self.x0)
+        for _ in range(k // chunk):
+            self.graphs[chunk].dispatch()
+        return self.buf
+
+    def release(self) -> None:
+        """Free the graphs (before the process group, as
+        :meth:`Graph.release` says) and the buffer."""
+        for g in self.graphs.values():
+            g.release()
+        self.graphs.clear()
+        self.buf = None
