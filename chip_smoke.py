@@ -9,6 +9,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
    power limit;
 2. build: the CUDA kernels from ``tpu_comm_torch/csrc`` into
    ``build/torch_ext/`` (one ``nvcc`` per source, all at once; timed);
+   then the sm_90a build check (``bench/aot.py`` ``compile_all_kernels``,
+   the libraries just built, no rebuild): every one of JAX's 86 build
+   cases must read ``ok`` but those ``aot.REFUSED`` records (ROADMAP.md
+   queue C), which must read ``error``; an ``aot`` line prints the map
+   and each kernel's registers, static shared memory and local (spill)
+   bytes (``cuobjdump --dump-resource-usage``); and the topology plan:
+   the port's ``topo plan --dry-run --json`` for the two banked mixes
+   must equal the committed ``tpu_comm_torch/data/topo_plan.json``
+   entries but for ``date``, a ``sweep --op ppermute --n-devices 1`` under
+   a temporary artifact that plans (1 device, 1D) must carry that plan's
+   ``plan_id`` as its rows' ``topo_plan`` (verified), and the same run
+   with ``TPU_COMM_TOPO_PLAN=0`` null (a ``topo_plan`` line);
 3. every kernel against its plain PyTorch version on the card, required
    bitwise equal (``torch.equal``):
    - stencils, the stream and the block kernels of the star (1D, 2D, 3D)
@@ -180,11 +192,11 @@ from fixed seeds. Phase 4's runs of one stencil share its NumPy golden
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
 import math
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -2800,15 +2812,125 @@ def check_stream_loads(libs) -> None:
 def _sass_functions(libs, lib: str):
     """``(mangled name, machine code)`` of every kernel in library
     ``lib``, from ``cuobjdump -sass``."""
+    from tpu_comm_torch.bench import aot
+
+    return aot.sass_functions(libs[lib]._name)
+
+
+#: the two mixes the JAX package banks in ``tpu_comm/data/topo_plan.json``
+#: (``topo plan`` arguments), whose entries the port's artifact holds
+TOPO_MIXES = (
+    ["--n-devices", "12", "--ndims", "2",
+     "--halo", "6144x768:w2:periodic:x200",
+     "--reshard", "6144x768:to2x6:sequential"],
+    ["--n-devices", "24", "--ndims", "2",
+     "--halo", "12288x768:w2:periodic:x200",
+     "--reshard", "12288x768:to2x12:sequential"],
+)
+
+
+def check_aot() -> None:
+    """Phase 2, the sm_90a build check: ``aot.compile_all_kernels`` on the
+    libraries phase 2 built (its target cache: nothing is rebuilt). Every
+    case reads ``ok`` but those of ``aot.REFUSED``, which read ``error``;
+    the ``aot`` line holds the map and each kernel's resource use, the
+    most over its instantiations."""
+    from tpu_comm_torch.bench import aot
     from tpu_comm_torch.kernels import _build
 
-    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(tool), "-sass", libs[lib]._name], capture_output=True,
-        text=True, timeout=120, check=True,
-    ).stdout
-    for part in sass.split("Function : ")[1:]:
-        yield part.split(None, 1)[0], part
+    t0 = time.perf_counter()
+    result = aot.compile_all_kernels()
+    check_s = time.perf_counter() - t0
+    names = [c.name for c in aot.kernel_cases()]
+    resources = {}
+    built = sorted(_build.build_sources().items())
+    with concurrent.futures.ThreadPoolExecutor(len(built)) as pool:
+        usage = list(pool.map(aot.resource_usage, dict(built).values()))
+    for (stem, _), table in zip(built, usage):
+        for fn, use in table.items():
+            row = resources.setdefault(f"{stem}.cu {aot.kernel_name(fn)}",
+                                       {"instantiations": 0})
+            row["instantiations"] += 1
+            for key, v in use.items():
+                row[key] = max(row.get(key, 0), v)
+    emit({"aot": {"cases": result, "refused": aot.REFUSED,
+                  "resources": resources, "check_s": check_s,
+                  "seconds": time.perf_counter() - t0}})
+    if list(result) != names or len(names) != 86:
+        fail(f"the build check answered {len(result)} cases, not JAX's 86")
+    for name, verdict in result.items():
+        if (verdict == "ok") == (name in aot.REFUSED):
+            fail(f"aot {name}: {verdict}" + (
+                " (recorded as refused: close its ROADMAP.md entry)"
+                if name in aot.REFUSED else ""))
+
+
+def check_topo_plan() -> None:
+    """Phase 2, the topology plan: the port's ``topo plan`` of the banked
+    mixes equals the committed artifact; a world-size-1 ``sweep --op
+    ppermute`` under a temporary plan for (1 device, 1D) stamps its
+    ``plan_id`` into every row, and with ``TPU_COMM_TOPO_PLAN=0`` none."""
+    import os
+
+    from tpu_comm_torch.comm import topoplan
+
+    t0 = time.perf_counter()
+    banked = {(e["n_devices"], e["ndims"]): e
+              for e in topoplan.load_plans()["plans"]}
+    for argv in TOPO_MIXES:
+        rc, out = _quiet_main(["topo", "plan", *argv, "--dry-run", "--json"])
+        if rc != 0:
+            fail(f"topo plan {' '.join(argv)} exited {rc}")
+        entry = json.loads(out.splitlines()[-1])
+        want = banked.get((entry["n_devices"], entry["ndims"]), {})
+        if ({k: v for k, v in entry.items() if k != "date"}
+                != {k: v for k, v in want.items() if k != "date"}):
+            fail(f"topo plan {' '.join(argv)} gives {entry}, the committed "
+                 f"artifact {want}")
+    knob = os.environ.get("TPU_COMM_TOPO_PLAN")
+    rows = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            art = Path(tmp) / "topo_plan.json"
+            rc, out = _quiet_main(
+                ["topo", "plan", "--n-devices", "1", "--ndims", "1",
+                 "--collective", "ppermute:1m", "--out", str(art), "--json"])
+            if rc != 0:
+                fail(f"topo plan for one device exited {rc}")
+            plan_id = json.loads(out.splitlines()[-1])["plan_id"]
+            for setting in (str(art), "0"):
+                os.environ["TPU_COMM_TOPO_PLAN"] = setting
+                rc, out = _quiet_main(
+                    ["sweep", "--op", "ppermute", "--n-devices", "1",
+                     "--min-bytes", "1024", "--max-bytes", "65536"])
+                if rc != 0:
+                    fail(f"sweep under TPU_COMM_TOPO_PLAN={setting} "
+                         f"exited {rc}")
+                rows[setting] = [json.loads(line)
+                                 for line in out.splitlines()
+                                 if line.startswith("{")]
+    finally:
+        if knob is None:
+            os.environ.pop("TPU_COMM_TOPO_PLAN", None)
+        else:
+            os.environ["TPU_COMM_TOPO_PLAN"] = knob
+    planned, off = rows[str(art)], rows["0"]
+    emit({"topo_plan": {
+        "banked": {f"{n}x{d}D": e["plan_id"] for (n, d), e in banked.items()},
+        "plan_id": plan_id,
+        "planned_rows": [(r["size"], r["topo_plan"], r["verified"])
+                         for r in planned],
+        "knob_off_rows": [(r["size"], r["topo_plan"]) for r in off],
+        "seconds": time.perf_counter() - t0}})
+    if not planned or not off:
+        fail("the topo_plan sweeps printed no rows")
+    for r in planned:
+        _want_row("sweep under the temporary plan", r,
+                  {"topo_plan": plan_id, "verified": True, "mesh": [1],
+                   "platform": "cuda"})
+    for r in off:
+        _want_row("sweep with TPU_COMM_TOPO_PLAN=0", r,
+                  {"topo_plan": None, "verified": True})
 
 
 def check_chunked_access(libs) -> None:
@@ -3447,6 +3569,8 @@ def main() -> int:
     emit({"build": {"seconds": time.perf_counter() - t0,
                     "libraries": sorted(libs),
                     "build_dir": str(_build.BUILD_DIR.relative_to(ROOT))}})
+    check_aot()
+    check_topo_plan()
     emit({"l2_fetch_granularity_bytes": l2_fetch_granularity(libs)})
 
     mods = family_modules()

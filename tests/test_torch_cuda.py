@@ -1473,3 +1473,47 @@ def test_tune_on_the_card_skips_only_pre_launch_refusals(card, tmp_path,
     monkeypatch.setattr(pstencil, "run_single_device", broken)
     with pytest.raises(RuntimeError, match="a CUDA error"):
         run_tune(cfg)
+
+
+def _build_cases():
+    from tpu_comm_torch.bench import aot
+
+    return {c.name: c for c in aot.kernel_cases()}
+
+
+def test_build_check_reads_ok_for_every_case_on_the_card(card):
+    """``bench/aot.py`` on the card's toolkit: every one of JAX's 86 cases
+    builds for sm_90a and holds its instantiations, but those the port
+    refuses (``aot.REFUSED``, ROADMAP.md C8)."""
+    from tpu_comm_torch.bench import aot
+
+    result = aot.compile_all_kernels()
+    assert list(result) == list(_build_cases())
+    for name, verdict in result.items():
+        if name in aot.REFUSED:
+            assert verdict.startswith("error: "), (name, verdict)
+        else:
+            assert verdict == "ok", (name, verdict)
+
+
+@pytest.mark.parametrize("name", list(_build_cases()))
+def test_every_build_case_launches_through_its_wrapper(card, name):
+    """Each case on a tensor of its shape and dtype, through the wrapper
+    it stands for: it launches where the build check's pre-launch checks
+    pass, and the wrapper refuses it where they do not."""
+    from tpu_comm_torch.bench import aot
+    from tpu_comm_torch.kernels.tiling import DTYPES
+
+    case = _build_cases()[name]
+    x = _field(case.shape, DTYPES[case.dtype], seed=3)
+    wrapper = getattr(case.module, aot.WRAPPERS[case.arm])
+    before = wrapper.launches
+    if name in aot.REFUSED:
+        with pytest.raises(ValueError, match="shared memory"):
+            case.run(x)
+        assert wrapper.launches == before
+        return
+    aot.check_case(case)
+    case.run(x)
+    torch.cuda.synchronize()
+    assert wrapper.launches > before

@@ -69,6 +69,7 @@ from tpu_comm_torch import cli
 from tpu_comm_torch.bench import stencil as pstencil
 from tpu_comm_torch.bench.timing import emit_jsonl
 from tpu_comm_torch.comm import launch
+from tpu_comm_torch.comm import topoplan as ptopoplan
 from tpu_comm_torch.domain import Decomposition
 from tpu_comm_torch.kernels import distributed as pdist
 from tpu_comm_torch.kernels.tiling import DTYPES, to_numpy_field
@@ -422,10 +423,40 @@ def ranks8():
                 "u0": u0, "mesh": CORNER_MESH, "iters": ITERS, "bc": bc,
                 "impl": "wave", "stencil": "27pt", "dtype": dtype,
             })
+    todo["planned"] = ("planned_mesh", {"doc": PLAN_DOC, "ndims": 2,
+                                        "shape": (2, 4)})
     with pytest.MonkeyPatch.context() as env:
         env.setenv("OMP_NUM_THREADS", "1")
         return launch.run_ranks(cases.run_cases, 8, "gloo", (todo,),
                                 timeout_s=300)
+
+
+#: a topo plan artifact for 8 ranks in 2D whose mesh is not the default
+#: (4, 2): a skewed periodic width-2 halo plans (8, 1) (JAX's
+#: ``tests/test_topoplan.py`` mix), made by the port's planner
+PLAN_DOC = {"plans": [ptopoplan.plan_entry(
+    8, 2, [ptopoplan.HaloArm(gshape=(8192, 64), width=2, periodic=True)])]}
+
+
+def test_planned_mesh_on_8_ranks_equals_jax(ranks8, tmp_path, monkeypatch):
+    """``make_cart_mesh(2)`` on 8 gloo ranks under the artifact takes the
+    plan's mesh and ``plan_id``, as JAX's ``make_cart_mesh(2,
+    backend="cpu-sim", n_devices=8)`` under the same artifact; an explicit
+    shape wins over the plan, and ``TPU_COMM_TOPO_PLAN=0`` gives the
+    default (4, 2), both without a plan id."""
+    art = tmp_path / "topo_plan.json"
+    art.write_text(json.dumps(PLAN_DOC))
+    want = []
+    for knob, shape in ((str(art), None), (str(art), (2, 4)), ("0", None)):
+        monkeypatch.setenv("TPU_COMM_TOPO_PLAN", knob)
+        jcart = jmake_cart_mesh(2, backend="cpu-sim", n_devices=8,
+                                shape=shape)
+        want.append((tuple(jcart.shape), jcart.plan_id))
+    entry = PLAN_DOC["plans"][0]
+    assert want == [((8, 1), entry["plan_id"]), ((2, 4), None),
+                    ((4, 2), None)]
+    for got in ranks8["planned"]:
+        assert got == want
 
 
 @pytest.mark.parametrize("impl", list(JAX_IMPL))

@@ -260,9 +260,9 @@ IDENTITY = ("workload", "impl", "src_mesh", "dst_mesh", "dtype", "size",
             "peak_live_bytes", "reshard_steps")
 
 
-def jax_rows(cfg: dict) -> list:
+def jax_rows(cfg: dict, iters: int = SMALL["iters"]) -> list:
     return jbench.run_reshard_bench(jbench.ReshardConfig(
-        **{**cfg, **SMALL, "backend": "cpu-sim"}))
+        **{**cfg, **SMALL, "backend": "cpu-sim", "iters": iters}))
 
 
 @pytest.mark.parametrize("i", range(len(BENCH_CONFIGS)))
@@ -420,9 +420,21 @@ def test_cli_reshard_on_4_ranks_prints_both_arms(tmp_path):
     rows = [json.loads(line) for line in res.stdout.strip().splitlines()]
     banked = [json.loads(line) for line in
               (tmp_path / "rows.jsonl").read_text().splitlines()]
-    jrows = jax_rows(dict(src_mesh=(4, 1), dst_mesh=(2, 2), size=64))
     assert [r["impl"] for r in rows] == ["naive", "sequential"]
-    for row, bank, jrow in zip(rows, banked, jrows):
+    # the ranks time on the machine's clock: a slope lost on a loaded
+    # machine is timed again with a loop 4x longer, at most SLOPE_RETRIES
+    # times, and the row reports the loop it kept; JAX's row is built at
+    # that same iters, so the identity below includes it
+    kept = {2 * 4 ** k for k in range(SLOPE_RETRIES + 1)}
+    for row in rows:
+        assert row["iters"] in kept, row["iters"]
+    jrows = {
+        it: jax_rows(dict(src_mesh=(4, 1), dst_mesh=(2, 2), size=64),
+                     iters=it)
+        for it in sorted({r["iters"] for r in rows})
+    }
+    for i, (row, bank) in enumerate(zip(rows, banked)):
+        jrow = jrows[row["iters"]][i]
         assert validate_row(bank) == ([], [])
         assert {k: row[k] for k in IDENTITY} == {k: jrow[k] for k in IDENTITY}
         assert {k: bank[k] for k in IDENTITY} == {k: row[k] for k in IDENTITY}

@@ -45,6 +45,7 @@ from tpu_comm_torch.bench import sweep as psweep
 from tpu_comm_torch.bench.timing import emit_jsonl
 from tpu_comm_torch.comm import collectives as pcoll
 from tpu_comm_torch.comm import launch
+from tpu_comm_torch.comm import topoplan as ptopoplan
 from torch_fake_clock import PER_ITER_S, fake_clock
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -89,7 +90,16 @@ def _todo(n: int) -> dict:
                 **SMALL, "op": op, "wire_dtype": wire, "acc_dtype": acc,
                 "dtype": "float32" if wire is None else "bfloat16",
                 "max_bytes": 4096})
+        for doc in (PLAN_DOC, "0"):
+            todo["planned", doc != "0"] = ("planned_sweep", {
+                "doc": doc, "cfg": {**SMALL, "op": "ppermute"}})
     return todo
+
+
+#: a topo plan artifact with one entry, for 4 ranks in 1D (the sweep's
+#: mesh), made by the port's planner
+PLAN_DOC = {"plans": [ptopoplan.plan_entry(
+    4, 1, [ptopoplan.CollectiveArm("ppermute", 1 << 20)])]}
 
 
 @pytest.fixture(scope="module", params=WORLDS, ids=lambda n: f"world{n}")
@@ -162,6 +172,29 @@ def test_rows_on_4_ranks_pass_the_schema_with_jax_identity(world, o):
         assert row["gbps_alg"] == row["size"] / PER_ITER_S / 1e9
         assert row["gbps_bus"] == pytest.approx(
             jsweep.bus_factor(op, 4) * row["gbps_alg"])
+
+
+@pytest.mark.parametrize("world", [4], indirect=True,
+                         ids=lambda n: f"world{n}")
+@pytest.mark.parametrize("planned", [True, False], ids=["planned", "off"])
+def test_rows_on_4_ranks_carry_the_plan_id_as_jax(world, planned,
+                                                  tmp_path, monkeypatch):
+    """Under an artifact that plans the sweep's (4, 1D) mesh the rows'
+    ``topo_plan`` is its ``plan_id``, as JAX's rows under the same
+    artifact; with ``TPU_COMM_TOPO_PLAN=0`` it is null in both."""
+    _, results = world
+    rows = results["planned", planned][0]
+    art = tmp_path / "topo_plan.json"
+    art.write_text(json.dumps(PLAN_DOC))
+    monkeypatch.setenv("TPU_COMM_TOPO_PLAN", str(art) if planned else "0")
+    jrows = jsweep.run_sweep(jsweep.SweepConfig(
+        op="ppermute", backend="cpu-sim", n_devices=4, min_bytes=1024,
+        max_bytes=1024, iters=2, warmup=0, reps=1))
+    want = PLAN_DOC["plans"][0]["plan_id"] if planned else None
+    assert [r["topo_plan"] for r in rows] == [want]
+    assert [r["topo_plan"] for r in jrows] == [want]
+    assert {k: rows[0][k] for k in IDENTITY} == {
+        k: jrows[0][k] for k in IDENTITY}
 
 
 def test_verification_fails_on_a_wrong_body(monkeypatch):

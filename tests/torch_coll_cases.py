@@ -68,6 +68,13 @@ def case_sweep(p):
         return psweep.run_sweep(psweep.SweepConfig(**p))
 
 
+def case_planned_sweep(p):
+    """``case_sweep`` of ``p["cfg"]`` under the topo plan ``p["doc"]`` (an
+    artifact, or ``"0"``)."""
+    with torch_mesh_cases.topo_plan(p["doc"]):
+        return case_sweep(p["cfg"])
+
+
 def case_subgroup(p):
     """``collectives.<fn>`` over the group of ranks ``p["ranks"]``
     (``root`` a rank of that group): what each member returns, None on
@@ -83,7 +90,7 @@ def case_subgroup(p):
 
 
 KINDS = {"coll": case_coll, "body": case_body, "sweep": case_sweep,
-         "subgroup": case_subgroup}
+         "subgroup": case_subgroup, "planned_sweep": case_planned_sweep}
 
 
 def run_cases(cases: dict) -> dict | None:

@@ -15,6 +15,12 @@ Inputs and results are NumPy arrays (bfloat16 as float32).
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -133,6 +139,40 @@ def case_bench(p):
         return pstencil.run_distributed_bench(pstencil.StencilConfig(**p))
 
 
+@contextlib.contextmanager
+def topo_plan(doc):
+    """The ``TPU_COMM_TOPO_PLAN`` knob set for the body, then restored: to
+    a temporary artifact holding ``doc`` where it is a dict, else to the
+    string ``doc`` itself (``"0"`` turns the plan off)."""
+    old = os.environ.get("TPU_COMM_TOPO_PLAN")
+    with tempfile.TemporaryDirectory() as tmp:
+        value = doc
+        if isinstance(doc, dict):
+            value = str(Path(tmp) / "topo_plan.json")
+            Path(value).write_text(json.dumps(doc))
+        os.environ["TPU_COMM_TOPO_PLAN"] = value
+        try:
+            yield
+        finally:
+            if old is None:
+                os.environ.pop("TPU_COMM_TOPO_PLAN", None)
+            else:
+                os.environ["TPU_COMM_TOPO_PLAN"] = old
+
+
+def case_planned_mesh(p):
+    """``make_cart_mesh(p["ndims"])`` of this world under the artifact
+    ``p["doc"]``, then with ``p["shape"]`` given, then with the knob at
+    ``0``: ``(shape, plan_id)`` each."""
+    out = []
+    for doc, shape in ((p["doc"], None), (p["doc"], p["shape"]),
+                       ("0", None)):
+        with topo_plan(doc):
+            cart = make_cart_mesh(p["ndims"], shape=shape)
+        out.append((cart.shape, cart.plan_id))
+    return out
+
+
 KINDS = {
     "run": case_run,
     "conv": case_conv,
@@ -143,6 +183,7 @@ KINDS = {
     "freeze": case_freeze,
     "verdict": case_verdict,
     "bench": case_bench,
+    "planned_mesh": case_planned_mesh,
 }
 
 

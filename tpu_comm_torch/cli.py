@@ -42,6 +42,11 @@
 - ``pipeline-gap`` — the pipeline-knob sweep (``bench/membw.py``): the
   chunked and stream copies with and without ``--aliased`` across a chunk
   ladder, and the 1D-3D stream stencils at every legal chunk.
+- ``topo plan`` — the modelled-traffic mesh search (``comm/topoplan.py``):
+  every factorisation of ``--n-devices`` scored against a declared mix of
+  halo, reshard and collective arms; the winner is banked in
+  ``tpu_comm_torch/data/topo_plan.json``, which a mesh built without a
+  shape consults (``TPU_COMM_TOPO_PLAN``). Touches no device.
 - ``info``    — torch and CUDA versions and the device a backend gives.
 
 Flags of the JAX CLI that the port does not have (``--dimsem`` of
@@ -622,6 +627,67 @@ def _cmd_pack(args) -> int:
     return 0
 
 
+def _cmd_topo(args) -> int:
+    """``topo plan``: search the mesh factorisations against a declared
+    workload mix and bank the winner (no device touched)."""
+    import datetime
+
+    from tpu_comm_torch.comm import topoplan
+
+    assert args.topo_cmd == "plan"
+    try:
+        arms = []
+        for s in args.halo or ():
+            arms.append(topoplan.parse_halo_spec(s))
+        for s in args.reshard or ():
+            arms.append(topoplan.parse_reshard_spec(s))
+        for s in args.collective or ():
+            arms.append(topoplan.parse_collective_spec(s))
+        date = datetime.datetime.now(
+            datetime.timezone.utc
+        ).strftime("%Y-%m-%d")
+        entry = topoplan.plan_entry(
+            args.n_devices, args.ndims, arms, date=date,
+        )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(entry, sort_keys=True))
+    else:
+        red = entry["reduction_frac"]
+        print(
+            f"topo plan: {entry['n_devices']} devices, "
+            f"{entry['ndims']}D, {len(entry['mix'])} arm(s), "
+            f"{entry['feasible']}/{entry['candidates']} candidates "
+            "feasible"
+        )
+        print(
+            f"  winner  {tuple(entry['mesh'])}  "
+            f"{entry['wire_per_step']:.0f} modeled wire B/step  "
+            f"[plan {entry['plan_id']}]"
+        )
+        if entry["default_wire_per_step"] is not None:
+            print(
+                f"  default {tuple(entry['default_mesh'])}  "
+                f"{entry['default_wire_per_step']:.0f} B/step  "
+                f"({red * 100:.1f}% reduction)"
+                if red is not None else
+                f"  default {tuple(entry['default_mesh'])}  "
+                f"{entry['default_wire_per_step']:.0f} B/step"
+            )
+        else:
+            print(
+                f"  default {tuple(entry['default_mesh'])} cannot "
+                "host the mix"
+            )
+    if args.dry_run:
+        return 0
+    path = topoplan.save_plan(entry, path=args.out)
+    print(f"banked plan {entry['plan_id']} -> {path}", file=sys.stderr)
+    return 0
+
+
 def _cmd_info(args) -> int:
     import torch
 
@@ -648,7 +714,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m tpu_comm_torch",
         description="PyTorch/CUDA port of tpu_comm: the stencil, halo, "
-        "collective sweep, reshard, attention and STREAM bandwidth drivers",
+        "collective sweep, reshard, attention and STREAM bandwidth "
+        "drivers, and the topology planner",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -1308,6 +1375,53 @@ def build_parser() -> argparse.ArgumentParser:
     p_pk.add_argument("--no-verify", action="store_true")
     p_pk.add_argument("--jsonl", default=None)
     p_pk.set_defaults(func=_cmd_pack)
+
+    p_tp = sub.add_parser(
+        "topo",
+        help="mesh placement tools: `topo plan` searches every "
+        "factorization of N devices against a declared workload mix "
+        "(halo/reshard/collective arms) with the wire-edge models and "
+        "banks the winner in tpu_comm_torch/data/topo_plan.json "
+        "(consulted by a mesh built without a shape, through "
+        "TPU_COMM_TOPO_PLAN)",
+    )
+    tp_sub = p_tp.add_subparsers(dest="topo_cmd", required=True)
+    p_tpp = tp_sub.add_parser(
+        "plan",
+        help="search factorizations and bank the modeled-wire winner "
+        "(no device touched)",
+    )
+    p_tpp.add_argument("--n-devices", type=int, required=True,
+                       help="device count the plan answers for")
+    p_tpp.add_argument("--ndims", type=int, choices=[1, 2, 3],
+                       default=2, help="mesh rank (default 2)")
+    p_tpp.add_argument(
+        "--halo", action="append", metavar="SPEC", default=None,
+        help="halo arm GSHAPE[:wN][:pN][:fN][:periodic][:DTYPE][:xW] "
+        "(e.g. 6144x768:w2:periodic:x200); repeatable",
+    )
+    p_tpp.add_argument(
+        "--reshard", action="append", metavar="SPEC", default=None,
+        help="reshard arm GSHAPE:toMESH[:naive|sequential][:DTYPE]"
+        "[:xW] (candidate mesh is the source; scored fwd+rev); "
+        "repeatable",
+    )
+    p_tpp.add_argument(
+        "--collective", action="append", metavar="SPEC", default=None,
+        help="collective arm OP:NBYTES[:axisN][:xW] with OP one of "
+        "ppermute/allreduce-ring/allgather-ring/bcast-tree; "
+        "repeatable",
+    )
+    p_tpp.add_argument(
+        "--out", default=None,
+        help="artifact path to upsert (default: the banked "
+        "tpu_comm_torch/data/topo_plan.json)",
+    )
+    p_tpp.add_argument("--dry-run", action="store_true",
+                       help="print the winner, bank nothing")
+    p_tpp.add_argument("--json", action="store_true",
+                       help="print the full entry as one JSON line")
+    p_tp.set_defaults(func=_cmd_topo)
     return parser
 
 

@@ -10,12 +10,18 @@ from ``tpu_comm/comm/patterns.py``; no torch, no JAX).
 - :data:`HALO_WIDTH_LADDER`, :func:`deep_halo_window_bytes_model`,
   :func:`deep_halo_redundant_cells`, :func:`deep_halo_model` — the
   pricing of the deep-halo window (``--halo-width``, ``halosweep``).
+- :class:`Edge`, :func:`halo_edges`, :func:`deep_halo_edges`,
+  :func:`wire_total`, :func:`ring_allgather_edges` — the explicit wire
+  edges an exchange or a ring all-gather dispatches, which the topology
+  planner (``comm/topoplan.py``) sums to score a mesh.
 
 The tests hold every one equal to the JAX package's on a table of
 shapes, meshes, widths and part counts.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 
 def shift_pairs(
@@ -170,3 +176,188 @@ def deep_halo_model(
         "redundant_cells_per_window": redundant,
         "redundant_compute_frac": redundant / cells if cells else 0.0,
     }
+
+
+# ------------------------------------------------------ edge extraction
+
+@dataclass(frozen=True)
+class Edge:
+    """One modelled wire transfer: flat rank ``src`` sends ``nbytes`` to
+    ``dst``. ``axis``/``direction`` locate the shift it rides (mesh axis
+    index; +1 = toward the higher coordinate); ``span`` is the sub-slab
+    interval of a partitioned exchange (None for a whole face). A
+    self-edge (``src == dst``, the periodic wrap of an axis of one rank)
+    moves nothing over a link."""
+
+    src: int
+    dst: int
+    nbytes: int
+    axis: int
+    direction: int
+    span: tuple[int, int] | None = None
+
+    @property
+    def is_wire(self) -> bool:
+        return self.src != self.dst
+
+
+def _ranks(mesh_shape: tuple[int, ...]) -> int:
+    out = 1
+    for p in mesh_shape:
+        out *= int(p)
+    return out
+
+
+def _coords(rank: int, mesh_shape: tuple[int, ...]) -> tuple[int, ...]:
+    out = []
+    for p in reversed(mesh_shape):
+        out.append(rank % p)
+        rank //= p
+    return tuple(reversed(out))
+
+
+def _rank(coords: tuple[int, ...], mesh_shape: tuple[int, ...]) -> int:
+    r = 0
+    for c, p in zip(coords, mesh_shape):
+        r = r * p + c
+    return r
+
+
+def _other_combos(mesh_shape: tuple[int, ...], axis: int) -> tuple:
+    """The other mesh axes and every combination of their coordinates
+    (the rings a shift along ``axis`` runs over)."""
+    other_axes = [a for a in range(len(mesh_shape)) if a != axis]
+    combos = [()]
+    for a in other_axes:
+        combos = [c + (v,) for c in combos for v in range(mesh_shape[a])]
+    return other_axes, combos
+
+
+def _shift_ranks(mesh_shape, axis, direction, periodic):
+    """Every (src_rank, dst_rank) pair of a ``direction`` shift along
+    ``axis``, ranks row-major over ``mesh_shape``, in the order the edge
+    models list them."""
+    ndim = len(mesh_shape)
+    other_axes, combos = _other_combos(mesh_shape, axis)
+    for s_idx, d_idx in shift_pairs(mesh_shape[axis], direction, periodic):
+        for combo in combos:
+            sc, dc = [0] * ndim, [0] * ndim
+            sc[axis], dc[axis] = s_idx, d_idx
+            for a, v in zip(other_axes, combo):
+                sc[a] = dc[a] = v
+            yield _rank(tuple(sc), mesh_shape), _rank(tuple(dc), mesh_shape)
+
+
+def halo_edges(
+    local_shape: tuple[int, ...],
+    mesh_shape: tuple[int, ...],
+    periodic: bool,
+    itemsize: int,
+    width: int = 1,
+    parts: int | None = None,
+) -> list[Edge]:
+    """The (src_rank -> dst_rank, bytes) edges one halo exchange
+    dispatches: per mesh axis, the hi face rides the +1
+    :func:`shift_pairs` table and the lo face the -1 table, for every
+    combination of the other axes' coordinates. A partitioned exchange
+    (``parts=K``) splits each face along :func:`partition_axis` into
+    :func:`split_spans` sub-slabs, one edge a sub-slab a pair. Ranks are
+    row-major over ``mesh_shape``."""
+    if len(local_shape) != len(mesh_shape):
+        raise ValueError(
+            f"local shape {local_shape} and mesh {mesh_shape} must "
+            "share one ndim"
+        )
+    edges: list[Edge] = []
+    for axis in range(len(mesh_shape)):
+        if local_shape[axis] < width:
+            raise ValueError(
+                f"local size {local_shape[axis]} along axis {axis} < "
+                f"halo width {width}"
+            )
+        if parts is None:
+            spans: list[tuple[int, int] | None] = [None]
+            span_elems = {None: 1}
+            split_ax = None
+        else:
+            split_ax = partition_axis(local_shape, axis)
+            if split_ax is None:
+                spans = [(0, 1)]
+            else:
+                spans = list(split_spans(local_shape[split_ax], parts))
+            span_elems = {s: (s[1] - s[0]) for s in spans}
+        # the face's volume: the array axis collapsed to ``width`` and a
+        # partitioned face's split axis replaced by the span's extent
+        base = width * itemsize
+        for j, s in enumerate(local_shape):
+            if j == axis or (split_ax is not None and j == split_ax):
+                continue
+            base *= s
+        for direction in (+1, -1):
+            for src, dst in _shift_ranks(mesh_shape, axis, direction,
+                                         periodic):
+                for span in spans:
+                    edges.append(Edge(
+                        src, dst, base * span_elems[span], axis,
+                        direction, span,
+                    ))
+    return edges
+
+
+def deep_halo_edges(
+    local_shape: tuple[int, ...],
+    mesh_shape: tuple[int, ...],
+    periodic: bool,
+    itemsize: int,
+    width: int,
+) -> list[Edge]:
+    """The wire edges ONE deep-halo window dispatches: the chained
+    width-k exchange, where axis i's slab spans ``local[j] + 2*width``
+    along every earlier axis j (the padded block it slices its faces
+    from). The pair tables are :func:`halo_edges`'; only the bytes an
+    edge differ."""
+    if len(local_shape) != len(mesh_shape):
+        raise ValueError(
+            f"local shape {local_shape} and mesh {mesh_shape} must "
+            "share one ndim"
+        )
+    if width < 1:
+        raise ValueError(f"width must be >= 1, got {width}")
+    ndim = len(mesh_shape)
+    edges: list[Edge] = []
+    grown = list(local_shape)
+    for axis in range(ndim):
+        if local_shape[axis] < width:
+            raise ValueError(
+                f"local size {local_shape[axis]} along axis {axis} < "
+                f"halo width {width}"
+            )
+        face = width * itemsize
+        for j in range(ndim):
+            if j != axis:
+                face *= grown[j]
+        for direction in (+1, -1):
+            for src, dst in _shift_ranks(mesh_shape, axis, direction,
+                                         periodic):
+                edges.append(Edge(src, dst, face, axis, direction))
+        grown[axis] += 2 * width  # the pad later axes' slabs carry
+    return edges
+
+
+def wire_total(edges: list[Edge]) -> int:
+    """The summed link bytes of an edge set (a self-edge crosses no
+    link)."""
+    return sum(e.nbytes for e in edges if e.is_wire)
+
+
+def ring_allgather_edges(n_world: int, block_bytes: int) -> list[Edge]:
+    """The ring all-gather's wire model (the reshard naive arm's
+    ``wire_bytes_per_chip``): every rank forwards ``n_world - 1`` blocks
+    to its ring successor, one edge a rank carrying the whole volume."""
+    if n_world < 2:
+        return []
+    return [
+        Edge(r, (r + 1) % n_world, (n_world - 1) * block_bytes,
+             axis=0, direction=+1)
+        for r in range(n_world)
+    ]

@@ -16,6 +16,7 @@ current stream's handle as integers.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -103,42 +104,50 @@ def _target(src: Path, nvcc: str) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-@functools.cache
-def libraries() -> dict[str, ctypes.CDLL]:
-    """Build (where needed) and load every source; ``{stem: library}``.
+def _compile(src: Path, target: Path, nvcc: str) -> Path | RuntimeError:
+    """Compile ``src`` to ``target`` unless it is there: the library's
+    path, or the RuntimeError that holds nvcc's output."""
+    if target.exists():
+        return target
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return RuntimeError(
+            f"{src.name} (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, target)
+    return target
 
-    Concurrent builds are safe: each process compiles to a private file and
-    renames it into place.
-    """
+
+def build_sources() -> dict[str, Path | RuntimeError]:
+    """Build every source of :data:`SOURCES` where its library is not
+    there yet, one ``nvcc`` a source, all at once; ``{stem: library
+    path, or the RuntimeError of its nvcc}``. Loads nothing and needs no
+    GPU. Raises RuntimeError only where ``nvcc`` is not found.
+
+    Concurrent builds are safe: each process compiles to a private file
+    and renames it into place."""
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name in SOURCES:
-        src = CSRC / name
-        target = _target(src, nvcc)
-        if target.exists():
-            jobs.append((src, target, None, None))
-            continue
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        jobs.append((src, target, tmp, proc))
-    failures = []
-    for src, target, tmp, proc in jobs:
-        if proc is None:
-            continue
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"{src.name} (exit {proc.returncode}):\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, target)
+    srcs = [CSRC / name for name in SOURCES]
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        built = pool.map(lambda src: _compile(src, _target(src, nvcc), nvcc),
+                         srcs)
+        return {src.stem: out for src, out in zip(srcs, built)}
+
+
+@functools.cache
+def libraries() -> dict[str, ctypes.CDLL]:
+    """Build (where needed) and load every source; ``{stem: library}``."""
+    built = build_sources()
+    failures = [str(e) for e in built.values() if isinstance(e, Exception)]
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     libs = {}
-    for src, target, _, _ in jobs:
+    for stem, target in built.items():
         lib = ctypes.CDLL(str(target))
         for sym, argtypes in SIGNATURES.items():
             if hasattr(lib, sym):
@@ -147,7 +156,7 @@ def libraries() -> dict[str, ctypes.CDLL]:
                 fn.restype = ctypes.c_int
         lib.tc_error_string.argtypes = (ctypes.c_int,)
         lib.tc_error_string.restype = ctypes.c_char_p
-        libs[src.stem] = lib
+        libs[stem] = lib
     return libs
 
 

@@ -106,6 +106,16 @@ def check_dma_ring(itemsize: int, rows_per_chunk: int, depth: int,
         )
 
 
+def check_depth(depth: int) -> None:
+    """Refuse a dma ring of fewer than 2 or more than
+    :data:`DMA_MAX_DEPTH` slots."""
+    if not 2 <= depth <= DMA_MAX_DEPTH:
+        raise ValueError(
+            f"depth must be in [2, {DMA_MAX_DEPTH}], got {depth}: one slot "
+            "cannot overlap its own load and store"
+        )
+
+
 def check_chunk(impl: str, itemsize: int, rows_per_chunk: int,
                 depth: int | None = None) -> None:
     """Refuse a chunk a kernel arm's wrapper would not launch: below one
@@ -254,11 +264,7 @@ def step_dma(x: torch.Tensor, rows_per_chunk: int | None = None,
     """One copy pipelined by hand through ``depth`` shared-memory slots of
     ``rows_per_chunk`` rows each. ``out`` must not alias ``x`` and both
     must be 16-byte aligned (TMA bulk copies)."""
-    if not 2 <= depth <= DMA_MAX_DEPTH:
-        raise ValueError(
-            f"depth must be in [2, {DMA_MAX_DEPTH}], got {depth}: one slot "
-            "cannot overlap its own load and store"
-        )
+    check_depth(depth)
     out = check_membw_args(x, out)
     rows = _chunk(rows_per_chunk, "dma", x.dtype)
     if x.device.type == "cpu":

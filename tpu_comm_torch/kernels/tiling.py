@@ -68,31 +68,41 @@ def narrow_store(
     return out.copy_(x)
 
 
+def check_field(
+    shape: tuple[int, ...], dtype: torch.dtype, ndim: int,
+    min_extents: tuple[int, ...] | None = None,
+) -> None:
+    """The field checks of :func:`check_kernel_args` that need no tensor:
+    a dtype the kernels take, ``ndim`` axes, each extent at least its
+    minimum (3 unless ``min_extents`` says otherwise)."""
+    if dtype not in KERNEL_DTYPE_CODES:
+        raise ValueError(
+            f"CUDA kernel takes {tuple(DTYPES)}, got {dtype}"
+        )
+    if len(shape) != ndim:
+        raise ValueError(
+            f"expected a {ndim}-D field, got shape {tuple(shape)}"
+        )
+    if min_extents is None:
+        min_extents = (3,) * ndim
+    if any(s < m for s, m in zip(shape, min_extents)):
+        raise ValueError(
+            f"the extents must be >= {min_extents}, got {tuple(shape)}"
+        )
+
+
 def check_kernel_args(
     u: torch.Tensor, ndim: int, out: torch.Tensor | None,
     min_extents: tuple[int, ...] | None = None,
 ) -> torch.Tensor:
     """Validate a CUDA kernel's input; return ``out`` (allocated with
     ``torch.empty_like`` when None). Raises on what the kernels do not
-    take: another device, dtype, rank, a non-contiguous tensor, an extent
-    below its minimum (3 unless ``min_extents`` says otherwise), or an
-    output that aliases the input or differs in form."""
+    take: another device, what :func:`check_field` refuses, a
+    non-contiguous tensor, or an output that aliases the input or differs
+    in form."""
     if u.device.type != "cuda":
         raise ValueError(f"CUDA kernel needs a CUDA tensor, got {u.device}")
-    if u.dtype not in KERNEL_DTYPE_CODES:
-        raise ValueError(
-            f"CUDA kernel takes {tuple(DTYPES)}, got {u.dtype}"
-        )
-    if u.dim() != ndim:
-        raise ValueError(
-            f"expected a {ndim}-D field, got shape {tuple(u.shape)}"
-        )
-    if min_extents is None:
-        min_extents = (3,) * ndim
-    if any(s < m for s, m in zip(u.shape, min_extents)):
-        raise ValueError(
-            f"the extents must be >= {min_extents}, got {tuple(u.shape)}"
-        )
+    check_field(tuple(u.shape), u.dtype, ndim, min_extents)
     if not u.is_contiguous():
         raise ValueError("CUDA kernel needs a contiguous field")
     if out is None:
@@ -121,6 +131,17 @@ def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.device == b.device and a0 < b1 and b0 < a1
 
 
+def check_membw_size(n: int, dtype: torch.dtype) -> None:
+    """The checks of :func:`check_membw_args` that need no tensor: a
+    dtype the kernels take, a multiple of 128 elements."""
+    if dtype not in KERNEL_DTYPE_CODES:
+        raise ValueError(f"membw kernels take {tuple(DTYPES)}, got {dtype}")
+    if n < 128 or n % 128:
+        raise ValueError(
+            f"membw kernels need a multiple of 128 elements, got {n}"
+        )
+
+
 def check_membw_args(
     x: torch.Tensor, out: torch.Tensor | None, aliased: bool = False,
     *others: torch.Tensor,
@@ -134,12 +155,7 @@ def check_membw_args(
     of 128 elements (the TPU kernels' ``(rows, 128)`` view). ``out`` may
     be ``x`` exactly when ``aliased`` (the in-place knob); any other
     overlap of ``out`` with an input is refused."""
-    if x.dtype not in KERNEL_DTYPE_CODES:
-        raise ValueError(f"membw kernels take {tuple(DTYPES)}, got {x.dtype}")
-    if x.numel() < 128 or x.numel() % 128:
-        raise ValueError(
-            f"membw kernels need a multiple of 128 elements, got {x.numel()}"
-        )
+    check_membw_size(x.numel(), x.dtype)
     for t in (x, *others):
         if not t.is_contiguous():
             raise ValueError("membw kernels need contiguous tensors")
@@ -455,6 +471,24 @@ def check_multi_tile(dim: int, tile: tuple[int, ...], halo: int) -> None:
         )
 
 
+def multi_launch_plan(shape: tuple[int, ...], t_steps: int,
+                      tile: tuple[int, ...]) -> tuple[list[int], tuple]:
+    """The launches of a ``t_steps`` pass over a field of ``shape`` and
+    the tile a block takes (:func:`launch_multi`'s pre-launch checks,
+    with no tensor): the steps of each launch (:func:`multi_passes`), and
+    ``tile``, cut in 3D to what a block holds, checked to fit a block
+    and the grid."""
+    dim = len(shape)
+    steps = multi_passes(t_steps, MULTI_T_MAX[dim])
+    halo = max(steps)
+    if dim == 3:
+        tile = multi3d_block_tile(tile, halo, shape[1:])
+    check_multi_tile(dim, tile, halo)
+    if dim > 1:
+        check_grid_extent(shape[-2], tile[0])
+    return steps, tile
+
+
 def launch_multi(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
                  t_steps: int, tile: tuple[int, ...]) -> int:
     """Launch a temporal-blocking kernel of ``csrc/multi.cu``: ``t_steps``
@@ -466,13 +500,7 @@ def launch_multi(symbol: str, u: torch.Tensor, out: torch.Tensor, bc: str,
     field is narrowed once, as in a single launch. ``tile`` is rows,
     columns in 3D too (the kernel marches z), cut to what a block holds
     by :func:`multi3d_block_tile`. Returns the number of launches."""
-    steps = multi_passes(t_steps, MULTI_T_MAX[u.dim()])
-    halo = max(steps)
-    if u.dim() == 3:
-        tile = multi3d_block_tile(tile, halo, u.shape[1:])
-    check_multi_tile(u.dim(), tile, halo)
-    if u.dim() > 1:
-        check_grid_extent(u.shape[-2], tile[0])
+    steps, tile = multi_launch_plan(tuple(u.shape), t_steps, tile)
     scratch = [torch.empty(u.shape, dtype=torch.float32, device=u.device)
                for _ in range(min(len(steps) - 1, 2))]
     src = u

@@ -1,6 +1,6 @@
 """Device selection and the Cartesian rank mesh (port of
-``tpu_comm/topo.py`` ``get_devices``, ``factor_mesh``, ``CartMesh`` and
-``make_cart_mesh``).
+``tpu_comm/topo.py`` ``get_devices``, ``factor_mesh``,
+``planned_mesh_shape``, ``CartMesh`` and ``make_cart_mesh``).
 
 The port runs on the card unless the caller asks for the CPU. Asking for
 ``cuda`` where there is none is an error, never a quiet run on the CPU.
@@ -9,13 +9,16 @@ JAX runs one process over N devices; PyTorch runs one process per rank
 over ``torch.distributed``. So a :class:`CartMesh` here is the mesh shape
 plus THIS rank's place in it: rank ``r`` sits at the row-major coordinate
 of ``r`` in ``shape`` (the id order of the JAX package's cpu-sim meshes),
-and ``lax.axis_index`` becomes ``coords``, a tuple of Python ints. The
-banked topo plan is not consulted: ``plan_id`` is always None.
+and ``lax.axis_index`` becomes ``coords``, a tuple of Python ints. A
+mesh built without a shape consults the banked topo plan
+(:func:`planned_mesh_shape`, ``comm/topoplan.py``) before it falls back
+to :func:`factor_mesh`, and carries the answering plan's ``plan_id``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from collections.abc import Sequence
 from dataclasses import dataclass
 
@@ -63,6 +66,32 @@ def factor_mesh(n: int, ndims: int) -> tuple[int, ...]:
     return tuple(sorted(dims, reverse=True))
 
 
+def planned_mesh_shape(
+    n: int, ndims: int,
+) -> tuple[tuple[int, ...] | None, str | None]:
+    """The banked topo plan's mesh for ``(n, ndims)``: ``(shape,
+    plan_id)`` where a plan answers, ``(None, None)`` otherwise.
+
+    The ``TPU_COMM_TOPO_PLAN`` knob steers it: ``0``/``off``/``none``
+    turns the lookup off, a path reads that artifact instead of the
+    banked ``tpu_comm_torch/data/topo_plan.json``, unset or ``1`` reads
+    the banked one. A plan whose mesh does not multiply out to ``n`` is
+    ignored."""
+    knob = os.environ.get("TPU_COMM_TOPO_PLAN", "").strip()
+    if knob.lower() in ("0", "off", "none"):
+        return None, None
+    from tpu_comm_torch.comm import topoplan
+
+    path = knob if knob not in ("", "1") else None
+    entry = topoplan.lookup(n, ndims, path=path)
+    if entry is None:
+        return None, None
+    shape = tuple(int(x) for x in entry.get("mesh", ()))
+    if len(shape) != ndims or math.prod(shape) != n:
+        return None, None
+    return shape, entry.get("plan_id")
+
+
 @dataclass(frozen=True)
 class CartMesh:
     """A Cartesian rank mesh as one rank sees it: the analog of an MPI
@@ -74,7 +103,8 @@ class CartMesh:
     axis_names: tuple[str, ...]
     periodic: tuple[bool, ...] = ()
     rank: int = 0
-    #: id of a banked topo plan; the port consults none
+    #: id of the banked topo plan that chose ``shape``; None where the
+    #: shape was given or came from :func:`factor_mesh`
     plan_id: str | None = None
 
     def __post_init__(self):
@@ -155,7 +185,9 @@ def make_cart_mesh(
     """Build this rank's 1/2/3-D Cartesian mesh (``MPI_Dims_create`` +
     ``MPI_Cart_create``). ``world`` and ``rank`` default to the default
     process group's (1 and 0 where none is up); without ``shape`` the
-    world is factored by :func:`factor_mesh`. An explicit shape must
+    banked topo plan for the world answers (:func:`planned_mesh_shape`,
+    which stamps ``plan_id``), else :func:`factor_mesh`. An explicit
+    shape always wins over the plan, and must
     multiply out to the world size exactly: a mesh that left ranks out
     would hang their collectives."""
     import torch.distributed as dist
@@ -168,8 +200,11 @@ def make_cart_mesh(
         world = dist.get_world_size() if up else 1
     if rank is None:
         rank = dist.get_rank() if up else 0
+    plan_id = None
     if shape is None:
-        shape = factor_mesh(world, ndims)
+        shape, plan_id = planned_mesh_shape(world, ndims)
+        if shape is None:
+            shape = factor_mesh(world, ndims)
     else:
         shape = tuple(int(s) for s in shape)
         if len(shape) != ndims:
@@ -190,5 +225,5 @@ def make_cart_mesh(
         raise ValueError("len(periodic) != ndims")
     return CartMesh(
         shape=tuple(shape), axis_names=axis_names, periodic=periodic,
-        rank=rank,
+        rank=rank, plan_id=plan_id,
     )
